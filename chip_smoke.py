@@ -6,29 +6,41 @@
 Phases, each of which must pass (nothing is caught and passed over):
 
 1. Device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, and the seconds the kernel build took (``nvcc`` for sm_90a,
-   from the sources in this checkout).
-2. Kernel check: the Gram kernel (csrc/gram.cu) against its plain PyTorch
+   versions, and the seconds each kernel build took (one ``nvcc`` per
+   source under ``csrc/``, all started at once, for sm_90a).
+2. K1 check: the Gram kernel (csrc/gram.cu) against its plain PyTorch
    version on the card, f32 and bf16, at the VGG-19 style-layer shapes of a
    1024² image, at ragged shapes of the 724 and 1448 scales and at B = 2
    (bar: max|Δ| / max|G| <= 1e-4), and the backward of the Gram's autograd
-   Function against autograd of the plain version.  Times of the kernel,
-   the plain version and torch.bmm (TF32 off) by CUDA events, median of 7
-   after warm-up, beside the bound.
-3. Main path: ``maua_style_tpu_torch.style.main`` on synthetic images
-   through the default 256..1448 pyramid with L-BFGS (history 100), VGG-19
-   at full width with seeded random weights, f32, --precision highest.
-   Checks the five PNGs and their shapes, the loss logs, and that the Gram
-   kernel was launched exactly as often as the path implies; prints ms/iter
-   per scale.  A small input is then optimised on the GPU and on the CPU
-   (whose plain path the CPU tests hold to the JAX package) and compared.
-4. Profile: torch.profiler over 5 iterations at 1024², device time by
-   kernel and by operator, and the device's busy share (report only).
-5. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
+   Function against autograd of the plain version.
+3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
+   version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
+   pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, and
+   at the 1 x 1 level of a 64² input (bar: max|Δ| / max|corr| <= 1e-5, two
+   launches bit-identical).  Times: CUDA events, median of 7 after
+   warm-up, around one call (K1, and K2's call times) or around the replay
+   of a CUDA graph of 10 calls (K2's device times), beside the plain
+   version's and the bound.
+4. img_img main path: ``maua_style_tpu_torch.style.main`` on synthetic
+   images through the default 256..1448 pyramid with L-BFGS (history 100),
+   VGG-19 at full width with seeded random weights, f32, --precision
+   highest.  Checks the PNGs, the loss logs and the K1 launch count; then a
+   small input on the GPU and on the CPU, and a torch.profiler window of 5
+   iterations at 1024² (report only).
+5. vid_img main path: ``style.main --transfer_type vid_img`` on a synthetic
+   8-frame 1024x576 video whose pattern moves a few pixels per frame, a 768²
+   style, SPyNet + PWC flow, sizes 512 and 1024 with 80 and 40 iterations
+   over 4 passes, --init random, VGG-19 f32 --precision highest, seeded
+   random weights.  Checks every artifact of the schema, finite .flo files
+   and loss logs, and the K1 and K2 launch counts; then SPyNet + PWC on the
+   GPU and on the CPU (TF32 off), and a torch.profiler window over one
+   later-pass 1024x576 frame (report only).
+6. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
 the package is not beside this script, or when any phase fails.  Details
-go to chiprun_out/chip_smoke/results.json.
+go to chiprun_out/chip_smoke/results.json; the vid_img run's artifacts are
+deleted once checked.
 """
 
 from __future__ import annotations
@@ -81,6 +93,27 @@ def time_ms(fn, reps: int = 7, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(fn, launches: int = 10) -> float:
+    """Device time of one call of ``fn``: ``launches`` calls captured in a
+    CUDA graph, its replay timed by ``time_ms``.  Unlike events around one
+    call, this leaves out the host's launch work, which is longer than a
+    small kernel."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # first use outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = time_ms(graph.replay) / launches
+    del graph
+    return ms
 
 
 def gram_bound_ms(b: int, c: int, n: int, dtype) -> tuple[float, str]:
@@ -165,6 +198,101 @@ def check_gram(results: dict) -> dict:
     }
 
 
+def corr_bound_ms(b: int, c: int, h: int, w: int, k: int) -> tuple[float, str]:
+    """max(operations / peak, bytes / bandwidth): 2·C operations for each of
+    the B·H·W·K outputs; f1 and f2 read once (4·B·H·W·C bytes each) and the
+    f32 output written once (4·B·H·W·K bytes)."""
+    ops = 2.0 * b * h * w * k * c / PEAK_FP32
+    byt = 4.0 * b * h * w * (2 * c + k) / PEAK_BYTES
+    return max(ops, byt) * 1e3, ("operations" if ops >= byt else "bytes")
+
+
+def pwc_levels(height: int, width: int) -> list[tuple[int, int, int]]:
+    """(C, H, W) of PWC's five correlation levels (6..2) for a frame, after
+    the flow module's resize to multiples of 64."""
+    h64, w64 = -(-height // 64) * 64, -(-width // 64) * 64
+    return [(c, h64 >> lvl, w64 >> lvl) for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))]
+
+
+def check_correlation(results: dict) -> dict:
+    import torch
+
+    from maua_style_tpu_torch.ops import correlation as K
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = []  # (tag, b, c, h, w, d, s)
+    for frame in ((576, 1024), (1088, 1920)):
+        for b in (1, 8):
+            shapes += [(f"pwc {frame[1]}x{frame[0]}", b, c, h, w, 4, 1) for c, h, w in pwc_levels(*frame)]
+    shapes += [("d3", 1, 128, 68, 120, 3, 1), ("d20s2", 1, 256, 48, 64, 20, 2), ("pwc 64x64", 1, 196, 1, 1, 4, 1)]
+    rows = []
+    for tag, b, c, h, w, d, s in shapes:
+        f1 = torch.randn((b, c, h, w), device=dev, generator=gen)
+        f2 = torch.randn((b, c, h, w), device=dev, generator=gen)
+        got = K.correlation(f1, f2, d, s)
+        torch.cuda.synchronize()
+        want = K.correlation_reference(f1, f2, d, s)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        exact = K.correlation_reference(f1.double(), f2.double(), d, s)
+        scale = float(exact.abs().max())
+        rel64 = (float((got - exact).abs().max()) / scale, float((want - exact).abs().max()) / scale)
+        del exact
+        if not rel <= 1e-5:
+            fail(f"correlation {tag} {(b, c, h, w, d, s)}: max|d|/max|corr| = {rel:.3e} > 1e-5")
+        if not torch.equal(K.correlation(f1, f2, d, s), got):
+            fail(f"correlation {tag} {(b, c, h, w, d, s)}: two launches differ (must be deterministic)")
+        k = got.shape[1]
+        row = {"tag": tag, "shape": [b, c, h, w], "max_disp": d, "stride": s, "K": k,
+               "main_path_1024x576_b8": tag == "pwc 1024x576" and b == 8,
+               "max_abs_err": err, "rel_err": rel, "kernel_rel_err_f64": rel64[0], "plain_rel_err_f64": rel64[1]}
+        # per call by events (host launch work included) and on the device
+        # alone by a CUDA graph of 10 calls
+        row["kernel_call_ms"] = time_ms(lambda: K.correlation(f1, f2, d, s))
+        row["plain_call_ms"] = time_ms(lambda: K.correlation_reference(f1, f2, d, s))
+        row["kernel_ms"] = graph_ms(lambda: K.correlation(f1, f2, d, s))
+        row["plain_ms"] = graph_ms(lambda: K.correlation_reference(f1, f2, d, s))
+        row["bound_ms"], row["bound_by"] = corr_bound_ms(b, c, h, w, k)
+        rows.append(row)
+        print("correlation", json.dumps(row))
+        del f1, f2, got, want
+    results["correlation"] = rows
+    main = [r for r in rows if r["main_path_1024x576_b8"]]
+    return {
+        "name": "correlation",
+        "route": "cuda",
+        "source": "maua_style_tpu_torch/csrc/correlation.cu",
+        "replaces": "maua_style_tpu/ops/correlation.py:47",
+        "max_abs_err": max(r["max_abs_err"] for r in main),
+        # one PWC forward's five cost volumes on the main path's pair chunk
+        # (8 pairs of 1024x576 frames)
+        "ms": sum(r["kernel_ms"] for r in main),
+        "plain_ms": sum(r["plain_ms"] for r in main),
+        "call_ms": sum(r["kernel_call_ms"] for r in main),
+        "plain_call_ms": sum(r["plain_call_ms"] for r in main),
+        "bound_ms": sum(r["bound_ms"] for r in main),
+        "bound_by": max(("operations", "bytes"), key=lambda k: sum(r["bound_ms"] for r in main if r["bound_by"] == k)),
+        "library_ms": None,  # no single PyTorch call computes a cost volume
+        "checked": True,
+    }
+
+
+def reset_counts() -> None:
+    from maua_style_tpu_torch.ops import correlation as K
+    from maua_style_tpu_torch.ops import gram as G
+
+    G.gram.launches = 0
+    K.correlation.launches = 0
+
+
+def read_counts() -> dict[str, int]:
+    from maua_style_tpu_torch.ops import correlation as K
+    from maua_style_tpu_torch.ops import gram as G
+
+    return {"gram": G.gram.launches, "correlation": K.correlation.launches}
+
+
 def write_inputs(d: str) -> tuple[str, str]:
     import numpy as np
     from PIL import Image
@@ -184,14 +312,13 @@ def write_inputs(d: str) -> tuple[str, str]:
     return c_path, s_path
 
 
-def run_main_path(results: dict) -> int:
+def run_main_path(results: dict) -> dict[str, int]:
     import numpy as np
     import torch
     from PIL import Image
 
     from maua_style_tpu_torch import style
     from maua_style_tpu_torch.engine import StyleEngine
-    from maua_style_tpu_torch.ops import gram as G
     from maua_style_tpu_torch.ops.resize import scale_shape
 
     run_dir = os.path.join(OUT, "img_img")
@@ -230,13 +357,14 @@ def run_main_path(results: dict) -> int:
     ]
     StyleEngine.optimize, StyleEngine._run = timed_optimize, timed_run
     try:
-        G.gram.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         style.main(argv)
         wall = time.perf_counter() - t0
-        launches = G.gram.launches
+        counts = read_counts()
     finally:
         StyleEngine.optimize, StyleEngine._run = orig_optimize, orig_run
+    launches = counts["gram"]
 
     expected = sum(STYLE_LAYERS * (it + 1) for it in ITERS)  # per iteration + one style capture per scale
     print(f"main path: {wall:.1f} s, gram launches {launches} (expected {expected})")
@@ -267,8 +395,8 @@ def run_main_path(results: dict) -> int:
                "first_total": first, "last_total": last}
         rows.append(row)
         print("scale", json.dumps(row))
-    results["main_path"] = {"wall_s": wall, "gram_launches": launches, "scales": rows, "argv": argv}
-    return launches
+    results["main_path"] = {"wall_s": wall, "launches": counts, "scales": rows, "argv": argv}
+    return counts
 
 
 def check_small_against_cpu(results: dict) -> None:
@@ -299,11 +427,46 @@ def check_small_against_cpu(results: dict) -> None:
     results["small_vs_cpu_rel"] = worst
 
 
+def device_profile(prof, wall_ms: float) -> dict:
+    """Device busy time (the union of kernel intervals), device time by
+    kernel and by launching aten operator, from a torch.profiler run."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == cuda)
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy_us += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy_us += 0.0 if cur_e is None else cur_e - cur_s
+    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+
+    def dev_ms(e, total=False):
+        return (e.device_time_total if total else e.self_device_time_total) / 1e3
+
+    avgs = prof.key_averages()
+    kernels = sorted(((dev_ms(e), e.count, e.key[:90]) for e in avgs if e.device_type == cuda and dev_ms(e) > 0), reverse=True)
+    # device time under the aten operators that launch it (nested ops overlap)
+    ops = sorted(((dev_ms(e, True), e.count, e.key) for e in avgs
+                  if e.device_type != cuda and e.key.startswith("aten::") and dev_ms(e, True) > 0), reverse=True)
+    out = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "kernel_window_ms": window_us / 1e3,
+        "busy_share_of_wall": busy_us / 1e3 / wall_ms,
+        "gram_kernel_ms": sum(ms for ms, _, n in kernels if "gram_partial" in n or "gram_reduce" in n),
+        "correlation_kernel_ms": sum(ms for ms, _, n in kernels if "correlation_kernel" in n),
+        "top_kernels": kernels[:12], "top_aten_ops": ops[:15],
+    }
+    if not spans:
+        out["note"] = "the profiler saw no device time (not measured)"
+    return out
+
+
 def profile_step(results: dict) -> None:
-    """torch.profiler over 5 iterations at 1024² (after a warm-up run):
-    device time by kernel and by launching aten operator, the Gram
-    kernel's share, and the device's busy share of the wall time.  Report
-    only: the numbers feed PERF.md's breakdown."""
+    """torch.profiler over 5 iterations at 1024² (after a warm-up run).
+    Report only: the numbers feed PERF.md's breakdown."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -325,39 +488,234 @@ def profile_step(results: dict) -> None:
         eng.optimize(content, [style_img], init, 5)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-
-    cuda = torch.autograd.DeviceType.CUDA
-    # device busy time = union of kernel intervals (overlapping kernels count once)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if e.device_type == cuda)
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for a, b in spans:
-        if cur_e is None or a > cur_e:
-            busy_us += 0.0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = a, b
-        else:
-            cur_e = max(cur_e, b)
-    busy_us += 0.0 if cur_e is None else cur_e - cur_s
-    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
-
-    def dev_ms(e, total=False):
-        return (e.device_time_total if total else e.self_device_time_total) / 1e3
-
-    avgs = prof.key_averages()
-    kernels = sorted(((dev_ms(e), e.count, e.key[:90]) for e in avgs if e.device_type == cuda and dev_ms(e) > 0), reverse=True)
-    # device time under the aten operators that launch it (nested ops overlap)
-    ops = sorted(((dev_ms(e, True), e.count, e.key) for e in avgs
-                  if e.device_type != cuda and e.key.startswith("aten::") and dev_ms(e, True) > 0), reverse=True)
-    gram_ms = sum(ms for ms, _, name in kernels if "gram_partial" in name or "gram_reduce" in name)
-    summary = {
-        "iters": 5, "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "kernel_window_ms": window_us / 1e3,
-        "busy_share_of_wall": busy_us / 1e3 / wall_ms, "gram_kernel_ms": gram_ms,
-        "top_kernels": kernels[:12], "top_aten_ops": ops[:15],
-        "note": "5 iterations at 1024^2 f32, TF32 off, L-BFGS history 100, including content/style capture",
-    }
-    if not spans:
-        summary["note"] += "; the profiler saw no device time (not measured)"
+    summary = {"iters": 5, **device_profile(prof, wall_ms),
+               "what": "5 iterations at 1024^2 f32, TF32 off, L-BFGS history 100, including content/style capture"}
     print("profile", json.dumps(summary))
     results["profile_1024"] = summary
+
+
+VID_FRAMES, VID_HW = 8, (576, 1024)
+VID_SIZES, VID_ITERS, VID_PASSES = (512, 1024), (80, 40), 4
+
+
+def write_video(d: str) -> tuple[str, str]:
+    """An 8-frame 1024x576 video whose pattern moves (3, 2) px per frame,
+    and a 768² style image."""
+    import numpy as np
+    from PIL import Image
+
+    h, w = VID_HW
+    yy, xx = np.mgrid[0 : h + 64, 0 : w + 64].astype(np.float32)
+    canvas = np.stack([
+        (np.sin(xx / 23.0) * np.cos(yy / 31.0) * 0.5 + 0.5) * 255,
+        (np.sin((xx + yy) / 57.0) * 0.5 + 0.5) * 255,
+        (((xx - 500) ** 2 + (yy - 300) ** 2) < 180 ** 2) * 180 + 40,
+    ], -1)
+    frames = np.stack([canvas[2 * t : 2 * t + h, 3 * t : 3 * t + w] for t in range(VID_FRAMES)]).astype(np.uint8)
+    v_path = os.path.join(d, "vid.npy")
+    np.save(v_path, frames)
+    sy, sx = np.mgrid[0:768, 0:768].astype(np.float32)
+    st = np.sin(sx / 9.0) * np.cos(sy / 13.0) * 127 + 128
+    s_path = os.path.join(d, "style.png")
+    Image.fromarray(np.stack([st, 255 - st, np.roll(st, 40, 0)], -1).astype(np.uint8)).save(s_path)
+    return v_path, s_path
+
+
+def vid_argv(v_path: str, s_path: str, run_dir: str) -> list[str]:
+    return [
+        "--transfer_type", "vid_img", "--content", v_path, "--style", s_path, "--output_dir", run_dir,
+        "--flow_models", "spynet,pwc", "--image_sizes", ",".join(map(str, VID_SIZES)),
+        "--num_iters", ",".join(map(str, VID_ITERS)), "--passes_per_scale", str(VID_PASSES),
+        "--init", "random", "--model_file", "vgg19", "--allow_random_weights", "--precision", "highest",
+        "--compute_dtype", "float32", "--seed", "0", "--gpu", "0", "--verbose",
+    ]
+
+
+def run_vid_img(results: dict) -> dict[str, int]:
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.io.flo import read_flo
+    from maua_style_tpu_torch.ops.resize import scale_shape
+    from maua_style_tpu_torch.pipelines import flow_prepass
+
+    run_dir = os.path.join(OUT, "vid_img")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    v_path, s_path = write_video(run_dir)
+    argv = vid_argv(v_path, s_path, run_dir)
+
+    frames, prepass = [], []
+    orig_frame, orig_pairs = StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs
+
+    def timed_frame(self, content_u8, styles, num_iters, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_frame(self, content_u8, styles, num_iters, **kw)
+        torch.cuda.synchronize()
+        log = self.last_loss_log.cpu().numpy()
+        frames.append({"hw": list(kw["out_hw"]), "mode": kw.get("init_mode"), "iters": num_iters,
+                       "s": time.perf_counter() - t0, "finite": bool(np.isfinite(log).all()),
+                       "first_total": float(log[0].sum()), "last_total": float(log[-1].sum())})
+        return out
+
+    def timed_pairs(model, missing, flow_dir, args):
+        t0 = time.perf_counter()
+        orig_pairs(model, missing, flow_dir, args)
+        torch.cuda.synchronize()
+        prepass.append({"pairs": len(missing), "wall_s": time.perf_counter() - t0})
+
+    StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs = timed_frame, timed_pairs
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        style.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs = orig_frame, orig_pairs
+
+    # K1: one style capture per scale (one style image, 5 layers) and 5
+    # Grams per iteration of every frame of every pass
+    per_frame = [it // VID_PASSES for it in VID_ITERS]
+    want_gram = sum(5 + 5 * VID_FRAMES * VID_PASSES * it for it in per_frame)
+    # K2: 5 PWC levels per forward, forward and backward flow per chunk of
+    # 8 pairs; the pairs are the frames' successors plus the wrap-around
+    want_corr = 5 * 2 * -(-VID_FRAMES // flow_prepass.PAIR_CHUNK)
+    print(f"vid_img main path: {wall:.1f} s, launches {counts} (expected gram {want_gram}, correlation {want_corr})")
+    if counts != {"gram": want_gram, "correlation": want_corr}:
+        fail(f"vid_img launches {counts} != gram {want_gram}, correlation {want_corr}")
+
+    work = os.path.join(run_dir, "vid_style")
+    names = [f"{i + 1:05d}" for i in range(VID_FRAMES)]
+
+    def png_hw(path):
+        if not os.path.exists(path):
+            fail(f"missing {path}")
+        with Image.open(path) as img:
+            return img.height, img.width
+
+    for n in names:
+        if png_hw(os.path.join(work, "frames", f"{n}.png")) != VID_HW:
+            fail(f"frame {n}: wrong shape")
+    max_flow = 0.0
+    for a, b in zip(names, names[1:] + names[:1]):
+        for stem in (f"forward_{a}_{b}", f"backward_{b}_{a}"):
+            flo = read_flo(os.path.join(work, "flow", stem + ".flo"))
+            if flo.shape != (*VID_HW, 2) or not np.isfinite(flo).all():
+                fail(f"{stem}.flo: shape {flo.shape} or not finite")
+            max_flow = max(max_flow, float(np.abs(flo).max()))
+            if png_hw(os.path.join(work, "flow", stem + ".png")) != VID_HW:
+                fail(f"{stem}.png: wrong shape")
+    scale_rows = []
+    per_scale = VID_FRAMES * VID_PASSES
+    if len(frames) != per_scale * len(VID_SIZES) or not all(f["finite"] for f in frames):
+        fail(f"{len(frames)} frames optimised (expected {per_scale * len(VID_SIZES)}) or a loss log not finite")
+    for si, (size, it) in enumerate(zip(VID_SIZES, per_frame)):
+        hw = tuple(scale_shape(VID_HW, size / max(VID_HW)))
+        for p in range(1, VID_PASSES + 1):
+            for n in names:
+                if png_hw(os.path.join(work, str(size), f"{p}_{n}.png")) != hw:
+                    fail(f"{size}/{p}_{n}.png: wrong shape")
+            recs = frames[si * per_scale + (p - 1) * VID_FRAMES : si * per_scale + p * VID_FRAMES]
+            if any(tuple(r["hw"]) != hw for r in recs):
+                fail(f"scale {size} pass {p}: engine shapes {[r['hw'] for r in recs]}")
+            secs = sum(r["s"] for r in recs)
+            row = {"size": size, "hw": list(hw), "pass": p, "mode": recs[0]["mode"], "iters_per_frame": it,
+                   "s_per_frame": secs / len(recs), "ms_per_iter": secs * 1e3 / (it * len(recs)),
+                   "first_total_frame1": recs[0]["first_total"], "last_total_frame1": recs[0]["last_total"]}
+            scale_rows.append(row)
+            print("vid_img", json.dumps(row))
+        mp4, npy = (os.path.join(work, f"vid_style_{size}.{ext}") for ext in ("mp4", "npy"))
+        if not os.path.exists(mp4) and not (os.path.exists(npy) and np.load(npy).shape == (VID_FRAMES, *hw, 3)):
+            fail(f"no muxed video for {size}")
+    pre = prepass[0] if prepass else None
+    if pre is None or pre["pairs"] != VID_FRAMES:
+        fail(f"pre-pass record {prepass}")
+    summary = {"wall_s": wall, "launches": counts, "prepass_wall_s": pre["wall_s"],
+               "prepass_s_per_pair": pre["wall_s"] / pre["pairs"], "max_abs_flow": max_flow,
+               "s_per_frame_all": sum(f["s"] for f in frames) / len(frames), "passes": scale_rows, "argv": argv}
+    print("vid_img summary", json.dumps({k: v for k, v in summary.items() if k not in ("passes", "argv")}))
+    results["vid_img"] = summary
+    return counts
+
+
+def check_flow_against_cpu(results: dict) -> None:
+    """SPyNet + PWC (the same seeded weights) on a 64x128 pair on the GPU,
+    through K2, and on the CPU, through the plain version the CPU tests
+    hold to the JAX package: max|Δ| / max|flow| <= 1e-3, TF32 off."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import flow
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    ims1 = rng.integers(0, 256, (2, 64, 128, 3), dtype=np.uint8)
+    ims2 = np.roll(ims1, (2, 3), axis=(1, 2))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        ns = argparse.Namespace(flow_models="spynet,pwc", allow_random_weights=True, device=dev)
+        outs[dev] = flow.get_flow_pair_model(ns).batched(ims1, ims2)
+    rels = [float(np.abs(g - c).max() / np.abs(c).max()) for g, c in zip(outs["cuda"][:2], outs["cpu"][:2])]
+    rel_maps = [float(np.abs(g - c).max()) for g, c in zip(outs["cuda"][2:], outs["cpu"][2:])]
+    print(f"flow GPU vs CPU: max|d|/max|flow| fwd {rels[0]:.3e} bwd {rels[1]:.3e}; reliability max|d| {rel_maps}")
+    if not max(rels) <= 1e-3:
+        fail(f"flow GPU vs CPU: {rels} > 1e-3")
+    results["flow_vs_cpu"] = {"rel": rels, "reliability_max_abs": rel_maps}
+
+
+def profile_vid_frame(results: dict) -> None:
+    """torch.profiler over one later-pass frame at 1024x576 (blend init,
+    warped temporal target, 10 L-BFGS iterations), after a warm-up frame,
+    with the main path's artifacts as inputs.  Report only."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from maua_style_tpu_torch import config
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch.io.flo import read_flo
+    from maua_style_tpu_torch.ops.frame_ops import style_hist_stats
+    from maua_style_tpu_torch.ops.resize import resize_bilinear_np, scale_shape
+    from maua_style_tpu_torch.pipelines.common import build_engine, scale_styles
+
+    run_dir = os.path.join(OUT, "vid_img")
+    work = os.path.join(run_dir, "vid_style")
+    args = config.get_args(vid_argv(os.path.join(run_dir, "vid.npy"), os.path.join(run_dir, "style.png"), run_dir))
+    size = VID_SIZES[-1]
+    content_scale = size / max(VID_HW)
+    hw = tuple(scale_shape(VID_HW, content_scale))
+    engine = build_engine(args, size)
+    style_big = mio.process_style_images(args)
+    styles = scale_styles(style_big, (1, *hw), args.style_scale)
+    with Image.open(os.path.join(work, "flow", "forward_00001_00002.png")) as img:
+        weights = np.asarray(img.convert("L"))
+    kw = dict(out_hw=hw, content_scale=content_scale, blend_weights=args.style_blend_weights, init_mode="blend",
+              prev=resize_bilinear_np(mio.preprocess(os.path.join(work, str(size), "1_00001.png")), size=hw),
+              blend=mio.load_u8(os.path.join(work, str(size), "1_00002.png")), temporal_blend=0.5,
+              flow=read_flo(os.path.join(work, "flow", "forward_00001_00002.flo")), weights_u8=weights,
+              use_temporal=True, hist_stats=style_hist_stats(style_big[0], rng=np.random.default_rng(0)))
+    u8 = mio.load_u8(os.path.join(work, "frames", "00002.png"))
+    iters = VID_ITERS[-1] // VID_PASSES
+    engine.optimize_frame(u8, styles, iters, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.optimize_frame(u8, styles, iters, **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = {"iters": iters, **device_profile(prof, wall_ms),
+               "what": "one pass-2 style frame at 1024x576: blend init, warped temporal target, L-BFGS history 100, f32, TF32 off"}
+    print("profile vid_img frame", json.dumps(summary))
+    results["profile_vid_frame"] = summary
 
 
 def main() -> int:
@@ -367,29 +725,37 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.kernels import build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    G._gram_lib()  # nvcc for sm_90a, from the sources in this checkout
-    build_s = time.perf_counter() - t0
-    print(f"kernel build: {build_s:.1f} s")
+    build_s = build.build(["gram", "correlation"])  # nvcc for sm_90a, from the sources in this checkout
+    print(f"kernel builds (parallel): {json.dumps(build_s)}, {time.perf_counter() - t0:.1f} s in all")
 
     os.makedirs(OUT, exist_ok=True)
     results = {"card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s}
-    entry = check_gram(results)
-    entry["launches"] = run_main_path(results)
+    gram = check_gram(results)
+    corr = check_correlation(results)
+    img = run_main_path(results)
     check_small_against_cpu(results)
     profile_step(results)
-    results["kernels"] = [entry]
+    vid = run_vid_img(results)
+    check_flow_against_cpu(results)
+    profile_vid_frame(results)
+    # launches: each path's own count, read right after it ran from zero
+    gram["launches"], gram["launches_by_path"] = img["gram"], {"img_img": img["gram"], "vid_img": vid["gram"]}
+    corr["launches"] = vid["correlation"]
+    corr["launches_by_path"] = {"img_img": img["correlation"], "vid_img": vid["correlation"]}
+    results["kernels"] = [gram, corr]
     with open(os.path.join(OUT, "results.json"), "w") as f:
         json.dump(results, f, indent=1)
+    shutil.rmtree(os.path.join(OUT, "vid_img"))  # ~200 MB of frames and flow, checked above
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [gram, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

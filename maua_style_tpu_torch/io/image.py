@@ -3,7 +3,8 @@ maua_style_tpu/io/image.py; reference: load.py:15-100).
 
 Host arrays are (1, H, W, 3) float32, BGR, mean-subtracted — the JAX
 package's layout, so both packages' artifacts compare byte for byte.  PNG
-only: video saving comes with the vid_img slice.
+only; the vid_img frames are PNGs too, and its video is muxed by
+pipelines/vid_img_mux.
 """
 
 from __future__ import annotations
@@ -41,6 +42,13 @@ def preprocess(image_path, size: tuple[int, int] | None = None) -> np.ndarray:
         rgb = np.asarray(pil, np.float32)
     bgr = rgb[..., ::-1] - CAFFE_MEAN
     return bgr[None]
+
+
+def load_u8(image_path) -> np.ndarray:
+    """Load an image as raw (H, W, 3) uint8 RGB, the per-frame transfer
+    format of the vid_img frame path (ops/frame_ops)."""
+    with Image.open(str(image_path)) as img:
+        return np.asarray(img.convert("RGB"))
 
 
 def deprocess(tensor: np.ndarray) -> Image.Image:
@@ -114,6 +122,7 @@ def process_style_images(args) -> list[np.ndarray]:
 __all__ = [
     "CAFFE_MEAN",
     "preprocess",
+    "load_u8",
     "deprocess",
     "save_image",
     "save_tensor_to_file",

@@ -1,11 +1,11 @@
-"""Build a CUDA source under ``csrc/`` into a shared library and load it.
+"""Build the CUDA sources under ``csrc/`` into shared libraries and load them.
 
 ``csrc/{name}.cu`` has a plain C interface and is compiled with ``nvcc`` for
 Hopper (``sm_90a``) into ``lib{name}_{hash}.so``, loaded with ``ctypes``.
 The hash covers the source and the flags, so an edited source rebuilds at
 its first use.  The build directory is ``kernels/_build`` in the package
-(listed in ``.gitignore``), or ``$MAUA_TORCH_BUILD_DIR``.  A failed build
-raises.
+(listed in ``.gitignore``), or ``$MAUA_TORCH_BUILD_DIR``.  ``build`` starts
+one ``nvcc`` per missing library, all at once; a failed build raises.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -38,15 +39,34 @@ def library_path(name: str) -> str:
     return os.path.join(build_dir(), f"lib{name}_{digest}.so")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/{name}.cu``, compiled first if it is missing."""
-    path = library_path(name)
-    if not os.path.exists(path):
+def build(names) -> dict[str, float]:
+    """Compile every missing library of ``names`` in parallel; returns the
+    wall seconds each build took (0 for a library already built)."""
+    started = {}
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            continue
         os.makedirs(build_dir(), exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, path, time.perf_counter())
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, path, t0) in started.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(f"kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, path)
-    return ctypes.CDLL(path)
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/{name}.cu``, compiled first if it is missing."""
+    build([name])
+    return ctypes.CDLL(library_path(name))

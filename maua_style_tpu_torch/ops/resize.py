@@ -1,10 +1,15 @@
-"""Host-side bilinear resize matching torch ``F.interpolate(mode="bilinear",
-align_corners=False)`` (JAX counterpart: maua_style_tpu/ops/resize.py,
-``resize_bilinear_np``).
+"""Bilinear resize with torch ``F.interpolate(mode="bilinear",
+align_corners=False)`` semantics (JAX counterpart:
+maua_style_tpu/ops/resize.py, ``resize_bilinear`` and ``resize_bilinear_np``).
 
-Torch quirk reproduced: with ``scale_factor=s`` torch uses ``1/s`` directly
-as the coordinate scale instead of the in/out size ratio.  Arrays are
-(..., H, W, C) numpy; the resize is a 2-tap gather per axis.
+Torch quirk kept: with ``scale_factor=s`` torch uses ``1/s`` directly as the
+coordinate scale instead of the in/out size ratio (the JAX package
+reproduces it).
+
+- ``resize_bilinear``: NCHW tensors on any device, through ``F.interpolate``
+  (``recompute_scale_factor=False`` keeps the quirk).
+- ``resize_bilinear_np``: host (..., H, W, C) numpy arrays, a 2-tap gather
+  per axis.
 """
 
 from __future__ import annotations
@@ -12,11 +17,28 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 def scale_shape(hw: tuple[int, int], scale_factor: float) -> tuple[int, int]:
     """Output (H, W) for a scale factor, matching torch's floor semantics."""
     return (int(math.floor(hw[0] * scale_factor)), int(math.floor(hw[1] * scale_factor)))
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int] | None = None, scale_factor: float | None = None) -> torch.Tensor:
+    """Resize (B, C, H, W) tensors; exactly one of ``size`` (H, W) or
+    ``scale_factor`` must be given.  Computes in float32, returns x's dtype."""
+    if (size is None) == (scale_factor is None):
+        raise ValueError("pass exactly one of size= or scale_factor=")
+    if size is not None:
+        if tuple(size) == tuple(x.shape[-2:]):
+            return x
+        y = F.interpolate(x.float(), size=tuple(int(s) for s in size), mode="bilinear", align_corners=False, antialias=False)
+    else:
+        y = F.interpolate(x.float(), scale_factor=float(scale_factor), mode="bilinear", align_corners=False,
+                          antialias=False, recompute_scale_factor=False)
+    return y.to(x.dtype)
 
 
 def _gather_coords(in_len: int, out_len: int, scale: float | None):
@@ -52,4 +74,4 @@ def resize_bilinear_np(x: np.ndarray, size: tuple[int, int] | None = None, scale
     return out.astype(x.dtype)
 
 
-__all__ = ["resize_bilinear_np", "scale_shape"]
+__all__ = ["resize_bilinear", "resize_bilinear_np", "scale_shape"]

@@ -5,8 +5,8 @@ Usage::
 
     python -m maua_style_tpu_torch.style --content c.png --style s.png [...]
 
-Runs on CUDA device 0 unless ``--gpu c`` asks for the CPU.  Only
-``--transfer_type img_img`` is ported; the video transfer types raise.
+Runs on CUDA device 0 unless ``--gpu c`` asks for the CPU.
+``--transfer_type img_img`` and ``vid_img`` are ported; ``img_vid`` raises.
 """
 
 from __future__ import annotations
@@ -15,10 +15,7 @@ import numpy as np
 
 from . import config
 
-_LATER = {
-    "vid_img": "ROADMAP Queue 1, Slice B (vid_img, items 9-11)",
-    "img_vid": "ROADMAP Queue 1, Slice C (img_vid, item 12)",
-}
+_LATER = {"img_vid": "ROADMAP Queue 1, Slice C (img_vid, item 12)"}
 
 
 def main(argv=None) -> None:
@@ -31,9 +28,14 @@ def main(argv=None) -> None:
         raise NotImplementedError(
             f"--transfer_type {args.transfer_type} is not ported yet: {_LATER[args.transfer_type]}"
         )
-    from .pipelines.img_img import img_img
+    if args.transfer_type == "vid_img":
+        from .pipelines.vid_img import vid_img
 
-    img_img(args)
+        vid_img(args)
+    else:
+        from .pipelines.img_img import img_img
+
+        img_img(args)
 
 
 if __name__ == "__main__":

@@ -103,6 +103,14 @@ def test_bf16_compute_keeps_f32_losses():
 
 @pytest.mark.parametrize("transfer_type", ["vid_img", "img_vid"])
 def test_unported_transfer_types_raise(transfer_type):
+    if transfer_type == "vid_img":
+        # vid_img is ported; the flow nets it leaves to Slice D raise
+        from maua_style_tpu_torch import config, flow
+
+        args = config.get_args(["--gpu", "c", "--transfer_type", "vid_img", "--flow_models", "spynet,unflow"])
+        with pytest.raises(NotImplementedError, match="Slice D"):
+            flow.get_flow_model(args)
+        return
     with pytest.raises(NotImplementedError, match="Slice"):
         style.main(["--gpu", "c", "--transfer_type", transfer_type])
     content, style_img, init = _images()
