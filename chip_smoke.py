@@ -11,16 +11,19 @@ Phases, each of which must pass (nothing is caught and passed over):
 2. K1 check: the Gram kernel (csrc/gram.cu) against its plain PyTorch
    version on the card, f32 and bf16, at the VGG-19 style-layer shapes of a
    1024² image, at ragged shapes of the 724 and 1448 scales and at B = 2
-   (bar: max|Δ| / max|G| <= 1e-4), and the backward of the Gram's autograd
-   Function against autograd of the plain version.
+   (bars: max|Δ| / max|G| <= 1e-4 against the plain version, <= 1e-5
+   against an f64 Gram for f32, two launches bit-identical), and the
+   backward of the Gram's autograd Function against autograd of the plain
+   version.  Times of the kernel, the plain version and ``torch.bmm``, each
+   per call and on the device, beside the tensor-core bound.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, and
    at the 1 x 1 level of a 64² input (bar: max|Δ| / max|corr| <= 1e-5, two
-   launches bit-identical).  Times: CUDA events, median of 7 after
-   warm-up, around one call (K1, and K2's call times) or around the replay
-   of a CUDA graph of 10 calls (K2's device times), beside the plain
-   version's and the bound.
+   launches bit-identical).  Times (K1 and K2): CUDA events, median of 7
+   after warm-up, around one call ("call", host launch work included) or
+   around the replay of a CUDA graph of 10 calls (the device time), beside
+   the plain version's and the bound.
 4. img_img main path: ``maua_style_tpu_torch.style.main`` on synthetic
    images through the default 256..1448 pyramid with L-BFGS (history 100),
    VGG-19 at full width with seeded random weights, f32, --precision
@@ -56,8 +59,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
-# H100 SXM data sheet (dense): FP32 SIMT, bf16 tensor cores, HBM3
+# H100 SXM data sheet (dense): FP32 SIMT, TF32 and bf16 tensor cores, HBM3
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
@@ -116,15 +120,21 @@ def graph_ms(fn, launches: int = 10) -> float:
     return ms
 
 
-def gram_bound_ms(b: int, c: int, n: int, dtype) -> tuple[float, str]:
+def gram_bound_ms(b: int, c: int, n: int, dtype, simt: bool = False) -> tuple[float, str]:
     """max(operations / peak, bytes / bandwidth).  G = F Fᵀ is symmetric, so
     the function needs the C(C+1)/2 entries on and above the diagonal:
-    2·N·C(C+1)/2 = N·C·(C+1) operations per frame.  Each input element is
-    read once, each f32 output written once."""
+    2·N·C(C+1)/2 = N·C·(C+1) operations per frame.  On the tensor cores an
+    f32-accurate product takes three TF32 products (3xTF32), 3·N·C·(C+1)
+    operations at the TF32 rate; bf16 products are exact, N·C·(C+1) at the
+    bf16 rate.  ``simt``: f32 and bf16 alike at the FP32 SIMT rate, the
+    bound of the SIMT kernel this one replaced.  Each input element is read
+    once, each f32 output written once."""
     import torch
 
-    elt = 4 if dtype == torch.float32 else 2
-    ops = 1.0 * b * n * c * (c + 1) / (PEAK_FP32 if dtype == torch.float32 else PEAK_BF16)
+    f32 = dtype == torch.float32
+    elt = 4 if f32 else 2
+    work = 1.0 * b * n * c * (c + 1)
+    ops = work / PEAK_FP32 if simt else (3 * work / PEAK_TF32 if f32 else work / PEAK_BF16)
     byt = (elt * b * c * n + 4.0 * b * c * c) / PEAK_BYTES
     return max(ops, byt) * 1e3, ("operations" if ops >= byt else "bytes")
 
@@ -158,15 +168,21 @@ def check_gram(results: dict) -> dict:
             del f64, exact
             if not rel <= 1e-4:
                 fail(f"gram {tuple(shape)} {dtype}: max|d|/max|G| = {rel:.3e} > 1e-4")
+            if dtype == torch.float32 and not rel64[0] <= 1e-5:
+                fail(f"gram {tuple(shape)} {dtype}: max|d|/max|G| = {rel64[0]:.3e} > 1e-5 against an f64 Gram")
             if not torch.equal(G.gram(f), got):
                 fail(f"gram {tuple(shape)} {dtype}: two launches differ (must be deterministic)")
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "main_path_1024": shape in main,
                    "max_abs_err": err, "rel_err": rel, "kernel_rel_err_f64": rel64[0], "plain_rel_err_f64": rel64[1]}
             ft = f.transpose(1, 2)
-            row["kernel_ms"] = time_ms(lambda: G.gram(f))
-            row["plain_ms"] = time_ms(lambda: G.gram_reference(f))
-            row["library_ms"] = time_ms(lambda: torch.bmm(f, ft))
+            # per call by events (host launch work included) and on the
+            # device alone by a CUDA graph of 10 calls
+            for key, fn in (("kernel", lambda: G.gram(f)), ("plain", lambda: G.gram_reference(f)),
+                            ("library", lambda: torch.bmm(f, ft))):
+                row[f"{key}_call_ms"] = time_ms(fn)
+                row[f"{key}_ms"] = graph_ms(fn)
             row["bound_ms"], row["bound_by"] = gram_bound_ms(b, c, n, dtype)
+            row["bound_simt_ms"] = gram_bound_ms(b, c, n, dtype, simt=True)[0]
             rows.append(row)
             print("gram", json.dumps(row))
 
@@ -187,13 +203,21 @@ def check_gram(results: dict) -> dict:
         "source": "maua_style_tpu_torch/csrc/gram.cu",
         "replaces": "maua_style_tpu/ops/pallas_gram.py:22",
         "max_abs_err": max(r["max_abs_err"] for r in f32_main),
-        # one iteration's forward Grams at 1024², f32: the five style layers
+        "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in f32_main),
+        # one iteration's forward Grams at 1024², f32: the five style layers,
+        # on the device (graphs) and per call (events)
         "ms": sum(r["kernel_ms"] for r in f32_main),
+        "call_ms": sum(r["kernel_call_ms"] for r in f32_main),
         "plain_ms": sum(r["plain_ms"] for r in f32_main),
+        "plain_call_ms": sum(r["plain_call_ms"] for r in f32_main),
         "bound_ms": sum(r["bound_ms"] for r in f32_main),
         # the term that accounts for more of the summed bound
         "bound_by": max(("operations", "bytes"), key=lambda k: sum(r["bound_ms"] for r in f32_main if r["bound_by"] == k)),
+        "bound_simt_ms": sum(r["bound_simt_ms"] for r in f32_main),
         "library_ms": sum(r["library_ms"] for r in f32_main),
+        "library_call_ms": sum(r["library_call_ms"] for r in f32_main),
+        # device time below torch.bmm's at every one of those shapes
+        "faster_than_library": all(r["kernel_ms"] < r["library_ms"] for r in f32_main),
         "checked": True,
     }
 

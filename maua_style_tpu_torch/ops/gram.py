@@ -21,14 +21,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from ..kernels import build
 
-_TILE = 64  # output tile edge of csrc/gram.cu
-_TK = 32  # N-depth of one stage of csrc/gram.cu
+_STAGE = 64  # N positions of a bf16 stage of csrc/gram.cu, two f32 stages
 _MIN_SPLIT = 256  # fewest N positions one block sums
+_RESIDENT = {64: 2, 128: 1}  # blocks an SM holds, by tile edge (112 and 160 KB of shared memory each)
+_FILL = 2  # a block's pipeline fill and epilogue, in stages of _STAGE positions
 
 
 def gram_reference(f: torch.Tensor) -> torch.Tensor:
@@ -46,23 +48,59 @@ def _sm_count(device_index: int) -> int:
 def _gram_lib() -> ctypes.CDLL:
     lib = build.load("gram")
     lib.gram_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.gram_forward.restype = ctypes.c_int
     return lib
 
 
-def gram_splits(batch: int, channels: int, n: int, sm_count: int) -> tuple[int, int, int]:
-    """(pairs, splits, chunk): upper-triangular 64x64 output tiles, and how N
-    is cut so that batch * pairs * splits blocks fill about four waves of
-    ``sm_count`` SMs, each block summing ``chunk`` positions (a multiple of
-    the stage depth)."""
-    tiles = _cdiv(channels, _TILE)
+class GramSplits(NamedTuple):
+    """How csrc/gram.cu cuts the work: ``tile``-edge output tiles, ``pairs``
+    of them on and above the diagonal, and for a diagonal and for an
+    off-diagonal pair the splits of N and the positions each sums (a whole
+    number of stages).  One block per (pair, split, frame)."""
+
+    tile: int
+    pairs: int
+    splits_diag: int
+    chunk_diag: int
+    splits_off: int
+    chunk_off: int
+
+
+@functools.lru_cache(maxsize=None)
+def gram_splits(batch: int, channels: int, n: int, sm_count: int, bf16: bool = False) -> GramSplits:
+    """The tile is 64 for C <= 64, else 128.  For f32 a diagonal pair's
+    block does about 2/3 of an off-diagonal one's work per position (two
+    TF32 products and one operand staged, against three, two and the
+    operand's split), so its chunk is 1.5 times as long; for bf16 equal
+    chunks were faster on the card.  Of the cuts that fill one to four waves
+    of the blocks that ``sm_count`` SMs hold at once, the one with the
+    fewest waves x (a block's work in stages + pipeline fill)."""
+    tile = 64 if channels <= 64 else 128
+    tiles = _cdiv(channels, tile)
     pairs = tiles * (tiles + 1) // 2
-    splits = max(1, min(_cdiv(4 * sm_count, batch * pairs), n // _MIN_SPLIT))
-    chunk = _cdiv(_cdiv(n, splits), _TK) * _TK
-    return pairs, _cdiv(n, chunk), chunk
+    off = pairs - tiles
+    ratio = 1.0 if bf16 else 1.5
+    slots = _RESIDENT[tile] * sm_count
+    cap = max(1, n // _MIN_SPLIT)
+
+    def cut(splits):
+        chunk = _cdiv(_cdiv(n, max(1, min(splits, cap))), _STAGE) * _STAGE
+        return _cdiv(n, chunk), chunk
+
+    best = None
+    for waves in range(1, 5):
+        splits_diag, chunk_diag = cut(int(waves * slots / (batch * (tiles + off * ratio))))
+        splits_off, chunk_off = cut(round(splits_diag * ratio)) if off else (0, chunk_diag)
+        blocks = batch * (tiles * splits_diag + off * splits_off)
+        work = max(chunk_diag, chunk_off * ratio if off else 0) / _STAGE  # in diagonal stages
+        cost = _cdiv(blocks, slots) * (work + _FILL)
+        if best is None or cost < best[0]:
+            best = (cost, GramSplits(tile, pairs, splits_diag, chunk_diag, splits_off, chunk_off))
+    return best[1]
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -85,13 +123,15 @@ def gram(f: torch.Tensor) -> torch.Tensor:
     b, c, n = f.shape
     if b < 1 or c < 1 or n < 1:
         raise ValueError(f"gram: empty input of shape {tuple(f.shape)}")
-    pairs, splits, chunk = gram_splits(b, c, n, _sm_count(f.device.index))
-    partial = torch.empty((splits, b, pairs, _TILE, _TILE), dtype=torch.float32, device=f.device)
+    bf16 = f.dtype == torch.bfloat16
+    sp = gram_splits(b, c, n, _sm_count(f.device.index), bf16)
+    splits = max(sp.splits_diag, sp.splits_off)
+    partial = torch.empty((splits, b, sp.pairs, sp.tile, sp.tile), dtype=torch.float32, device=f.device)
     out = torch.empty((b, c, c), dtype=torch.float32, device=f.device)
     lib = _gram_lib()
     with torch.cuda.device(f.device):
         rc = lib.gram_forward(
-            f.data_ptr(), int(f.dtype == torch.bfloat16), b, c, n, splits, chunk,
+            f.data_ptr(), int(bf16), b, c, n, sp.tile, sp.splits_diag, sp.chunk_diag, sp.splits_off, sp.chunk_off,
             partial.data_ptr(), out.data_ptr(), torch.cuda.current_stream(f.device).cuda_stream,
         )
     if rc != 0:

@@ -78,12 +78,66 @@ def test_gram_matrix_and_bf16_reference():
     torch.testing.assert_close(g[0], f @ f.T, rtol=1e-6, atol=1e-5)
 
 
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("b,c,n,sms", [(1, 64, 1048576, 132), (1, 512, 4096, 132), (2, 128, 131044, 132),
-                                      (1, 70, 300, 132), (3, 1000, 37, 132), (1, 64, 1, 8)])
-def test_gram_splits_cover_n_exactly(b, c, n, sms):
-    pairs, splits, chunk = G.gram_splits(b, c, n, sms)
-    tiles = -(-c // 64)
-    assert pairs == tiles * (tiles + 1) // 2
-    assert chunk % 32 == 0 and splits >= 1
-    assert (splits - 1) * chunk < n <= splits * chunk  # no empty split, nothing left over
-    assert splits < 65536  # gridDim.y
+                                      (1, 70, 300, 132), (3, 1000, 37, 132), (1, 64, 1, 8),
+                                      (1, 256, 32761, 132), (1, 512, 2025, 132), (1, 64, 16777216, 132)])
+def test_gram_splits_cover_n_exactly(b, c, n, sms, bf16):
+    sp = G.gram_splits(b, c, n, sms, bf16)
+    assert sp.tile == (64 if c <= 64 else 128)
+    tiles = -(-c // sp.tile)
+    assert sp.pairs == tiles * (tiles + 1) // 2
+    cuts = [(sp.splits_diag, sp.chunk_diag)] + ([(sp.splits_off, sp.chunk_off)] if tiles > 1 else [])
+    for splits, chunk in cuts:
+        # whole stages (32 f32 or 64 bf16 positions), so only a pair's last split is ragged
+        assert chunk % 64 == 0 and splits >= 1
+        assert (splits - 1) * chunk < n <= splits * chunk  # no empty split, nothing left over
+        assert splits < 65536  # gridDim.y
+    if tiles > 1:  # a diagonal pair's block sums more positions: it does less work per position
+        assert sp.chunk_diag >= sp.chunk_off
+    resident = 2 if sp.tile == 64 else 1  # blocks an SM holds
+    blocks = b * (tiles * sp.splits_diag + (sp.pairs - tiles) * sp.splits_off)
+    assert blocks == b * sp.pairs or blocks <= 4 * resident * sms  # at most four waves
+
+
+def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
+    """x with its 13 low mantissa bits cleared: the TF32 value the tensor
+    cores read of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_lo(x: torch.Tensor) -> torch.Tensor:
+    """x - hi (exact in f32) rounded to the nearest TF32, ties away from zero,
+    by integer arithmetic on the float bits: add half a TF32 ulp to the
+    magnitude bits and clear the 13 low bits."""
+    bits = (x - _tf32_hi(x)).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("c,n,signed", [(8, 100, True), (64, 4096, False), (70, 333, True), (130, 2025, False)])
+def test_3xtf32_split_keeps_f32_accuracy(c, n, signed):
+    """The error model csrc/gram.cu relies on for f32 inputs: hi = x
+    truncated to TF32, lo = tf32(x - hi), G ~ lo·hiᵀ + hi·loᵀ + hi·hiᵀ (the
+    products summed exactly here, in f64) is within 1e-6 of the exact Gram
+    relative to its largest entry, and nearer to it than one TF32 product
+    (hi·hiᵀ).  A diagonal tile's form, S = lo·hiᵀ + (hi/2)·hiᵀ and
+    G = S + Sᵀ, is the same sum."""
+    rng = np.random.default_rng(c * n)
+    x = rng.normal(0.0, 3.0, (c, n)).astype(np.float32)
+    if not signed:
+        x = np.maximum(x, 0.0)  # relu activations
+    f = torch.from_numpy(x)
+    hi, lo = _tf32_hi(f), _tf32_lo(f)
+    # both halves are TF32 values, and the split is exact to 2^-21 of each |x|
+    assert not ((hi.view(torch.int32) & 0x1FFF).any() or (lo.view(torch.int32) & 0x1FFF).any())
+    h, l, x64 = hi.double(), lo.double(), f.double()
+    assert bool(((x64 - h - l).abs() <= 2.0**-21 * x64.abs()).all())
+    exact = x64 @ x64.T
+    scale = float(exact.abs().max())
+    three = l @ h.T + h @ l.T + h @ h.T
+    err3 = float((three - exact).abs().max()) / scale
+    err1 = float((h @ h.T - exact).abs().max()) / scale
+    assert err3 <= 1e-6
+    assert err3 < err1
+    s = l @ h.T + (0.5 * h) @ h.T
+    torch.testing.assert_close(s + s.T, three, rtol=1e-12, atol=1e-12 * scale)
