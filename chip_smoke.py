@@ -19,11 +19,15 @@ Phases, each of which must pass (nothing is caught and passed over):
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, and
-   at the 1 x 1 level of a 64² input (bar: max|Δ| / max|corr| <= 1e-5, two
+   at the 1 x 1 level of a 64² input (bars: max|Δ| / max|corr| <= 1e-5
+   against the plain version, the same against an f64 cost volume, two
    launches bit-identical).  Times (K1 and K2): CUDA events, median of 7
    after warm-up, around one call ("call", host launch work included) or
    around the replay of a CUDA graph of 10 calls (the device time), beside
-   the plain version's and the bound.
+   the plain version's and the bound; K2's share of its bound per shape
+   and summed over the main path's five levels.  K2 is built in one
+   library per (d, s) family (its register blocking is fixed at compile
+   time); phase 1 prints what ``ptxas -v`` says of each.
 4. img_img main path: ``maua_style_tpu_torch.style.main`` on synthetic
    images through the default 256..1448 pyramid with L-BFGS (history 100),
    VGG-19 at full width with seeded random weights, f32, --precision
@@ -265,6 +269,8 @@ def check_correlation(results: dict) -> dict:
         del exact
         if not rel <= 1e-5:
             fail(f"correlation {tag} {(b, c, h, w, d, s)}: max|d|/max|corr| = {rel:.3e} > 1e-5")
+        if not rel64[0] <= 1e-5:
+            fail(f"correlation {tag} {(b, c, h, w, d, s)}: max|d|/max|corr| = {rel64[0]:.3e} > 1e-5 against f64")
         if not torch.equal(K.correlation(f1, f2, d, s), got):
             fail(f"correlation {tag} {(b, c, h, w, d, s)}: two launches differ (must be deterministic)")
         k = got.shape[1]
@@ -278,6 +284,8 @@ def check_correlation(results: dict) -> dict:
         row["kernel_ms"] = graph_ms(lambda: K.correlation(f1, f2, d, s))
         row["plain_ms"] = graph_ms(lambda: K.correlation_reference(f1, f2, d, s))
         row["bound_ms"], row["bound_by"] = corr_bound_ms(b, c, h, w, k)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["plan"] = K.launch_plan(b, c, h, w, d, s, torch.cuda.get_device_properties(dev).multi_processor_count)._asdict()
         rows.append(row)
         print("correlation", json.dumps(row))
         del f1, f2, got, want
@@ -297,6 +305,8 @@ def check_correlation(results: dict) -> dict:
         "plain_call_ms": sum(r["plain_call_ms"] for r in main),
         "bound_ms": sum(r["bound_ms"] for r in main),
         "bound_by": max(("operations", "bytes"), key=lambda k: sum(r["bound_ms"] for r in main if r["bound_by"] == k)),
+        "bound_share": sum(r["bound_ms"] for r in main) / sum(r["kernel_ms"] for r in main),
+        "bound_share_by_level": [r["bound_share"] for r in main],
         "library_ms": None,  # no single PyTorch call computes a cost volume
         "checked": True,
     }
@@ -480,7 +490,7 @@ def device_profile(prof, wall_ms: float) -> dict:
         "wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3, "kernel_window_ms": window_us / 1e3,
         "busy_share_of_wall": busy_us / 1e3 / wall_ms,
         "gram_kernel_ms": sum(ms for ms, _, n in kernels if "gram_partial" in n or "gram_reduce" in n),
-        "correlation_kernel_ms": sum(ms for ms, _, n in kernels if "correlation_kernel" in n),
+        "correlation_kernel_ms": sum(ms for ms, _, n in kernels if "correlation_blocked" in n or "correlation_reduce" in n),
         "top_kernels": kernels[:12], "top_aten_ops": ops[:15],
     }
     if not spans:
@@ -755,13 +765,22 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    from maua_style_tpu_torch.ops.correlation import launch_plan
+
+    # K2's libraries for phase 3's (d, s) families: PWC's d = 4, d = 3, (d = 20, s = 2)
+    corr_libs = [("correlation", launch_plan(1, 8, 16, 32, d, s).defines) for d, s in ((4, 1), (3, 1), (20, 2))]
     t0 = time.perf_counter()
-    build_s = build.build(["gram", "correlation"])  # nvcc for sm_90a, from the sources in this checkout
+    build_s = build.build(["gram", *corr_libs])  # nvcc for sm_90a, from the sources in this checkout, in parallel
     print(f"kernel builds (parallel): {json.dumps(build_s)}, {time.perf_counter() - t0:.1f} s in all")
+    ptxas = {" ".join(defines): build.ptxas_report(name, defines) for name, defines in corr_libs}
+    for key, log in ptxas.items():
+        print(f"ptxas -v, correlation.cu {key}:")
+        print("\n".join(line for line in log.splitlines() if "Function properties" in line or "registers" in line
+                        or "spill" in line or "Compiling entry" in line))
 
     os.makedirs(OUT, exist_ok=True)
     results = {"card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-               "cuda": torch.version.cuda, "build_s": build_s}
+               "cuda": torch.version.cuda, "build_s": build_s, "ptxas_correlation": ptxas}
     gram = check_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)

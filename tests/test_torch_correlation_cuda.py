@@ -23,13 +23,48 @@ from maua_style_tpu_torch.ops import correlation as C
     (40, 17, 33, 3, 1),  # LiteFlowNet's d = 3
     (24, 20, 45, 20, 2),  # FlowNetC's d = 20, s = 2: 441 displacements, a halo wider than the frame
     (5, 8, 32, 4, 2),
+    (12, 9, 17, 4, 1),  # W % 4 == 1: 4-byte copies, scalar stores
+    (12, 7, 18, 2, 1),  # W % 4 == 2
+    (196, 17, 30, 4, 1),  # PWC level 6 of a 1920 x 1088 frame, W % 4 == 2
+    (12, 6, 19, 1, 1),  # W % 4 == 3
+    (8, 6, 8, 20, 1),  # d = 20, s = 1: two displacement column groups
 ])
 def test_cuda_kernel_matches_plain_version(b, c, h, w, d, s):
+    _check(b, c, h, w, d, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,d,s", [
+    (8, 196, 9, 16, 4, 1),  # channel splits: PWC level 6 of 8 pairs of 1024 x 576
+    (8, 128, 18, 32, 4, 1),  # level 5
+    (2, 64, 24, 64, 20, 2),  # FlowNetC's d = 20, s = 2 at B = 2: dy-row blocks and splits
+])
+def test_cuda_kernel_schedules_match_plain_version(b, c, h, w, d, s):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    p = C.launch_plan(b, c, h, w, d, s, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert p.splits > 1 and (d != 20 or p.dy_blocks > 1)
+    _check(b, c, h, w, d, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [32, 30])
+def test_cuda_kernel_takes_an_unaligned_base_pointer(w):
+    """A contiguous view at storage offset 1 is only 4-byte aligned: the
+    kernel takes its 4-byte copies."""
+    _check(2, 24, 16, w, 4, 1, offset=1)
+
+
+def _check(b, c, h, w, d, s, offset=0):
+    """The kernel against the plain version on one seeded input, and a
+    bit-identical relaunch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    f1 = torch.randn(b, c, h, w, device="cuda", generator=gen)
-    f2 = torch.randn(b, c, h, w, device="cuda", generator=gen)
+    size = b * c * h * w
+    f1 = torch.randn(size + offset, device="cuda", generator=gen)[offset:].view(b, c, h, w)
+    f2 = torch.randn(size + offset, device="cuda", generator=gen)[offset:].view(b, c, h, w)
+    assert f1.is_contiguous() and (f1.data_ptr() % 16 == 0) == (offset == 0)
     before = C.correlation.launches
     got = C.correlation(f1, f2, d, s)
     torch.cuda.synchronize()
