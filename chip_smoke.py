@@ -15,7 +15,11 @@ Phases, each of which must pass (nothing is caught and passed over):
    against an f64 Gram for f32, two launches bit-identical), and the
    backward of the Gram's autograd Function against autograd of the plain
    version.  Times of the kernel, the plain version and ``torch.bmm``, each
-   per call and on the device, beside the tensor-core bound.
+   per call and on the device, beside the tensor-core bound.  Then the same
+   bars and times at every K1 input of phase 6's path: its windows' per-
+   frame batches (gfw, C, H·W) and whole-window views (1, gfw·C, H·W) at
+   its three scales, with the partial buffer's bytes, the peak memory of
+   the largest view and the backward at C' = 9216 and at B = 18.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, and
@@ -42,16 +46,37 @@ Phases, each of which must pass (nothing is caught and passed over):
    and loss logs, and the K1 and K2 launch counts; then SPyNet + PWC on the
    GPU and on the CPU (TF32 off), and a torch.profiler window over one
    later-pass 1024x576 frame (report only).
-6. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
+6. img_vid main path: ``style.main --transfer_type img_vid`` on a synthetic
+   1024x576 content image and a 24-frame 768x432 style video whose pattern
+   moves a few pixels per frame, with the defaults' window structure
+   (--gram_frame_window 18,9,7, --avg_frame_window 18, --video_style_factor
+   100, --temporal_blend 0.5, L-BFGS history 100), --init random, VGG-19
+   f32 --precision highest, cut to 24 frames, sizes 256/512/724 and 4
+   iterations a window.  Checks the per-scale and final stacks, finite
+   outputs and loss logs, a non-zero dynamic term at every scale, every
+   K1 input shape (per-frame and whole-window) against phase 2's, and K1's
+   launch count against the schedule's formula (the dynamic term is read
+   by the plain version after each scale's timed run, from a copy of its
+   first activations); a torch.profiler window over one img_vid window
+   at 256 and at 724 (report only); then a 6-frame window run on the GPU
+   and on the CPU (TF32 off).
+7. Paths no other phase drives (report only; a failure fails the run):
+   img_img at 512² with --compute_dtype bfloat16, --precision high,
+   --optimizer adam and --original_colors, and a short vid_img with --init
+   prev_warp --original_colors; then the 1024² img_img step twice from one
+   seed, with and without ``torch.backends.cudnn.deterministic``, printing
+   the first activation, Gram, loss or gradient that differs.
+8. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
 the package is not beside this script, or when any phase fails.  Details
-go to chiprun_out/chip_smoke/results.json; the vid_img run's artifacts are
+go to chiprun_out/chip_smoke/results.json; the video runs' artifacts are
 deleted once checked.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -143,10 +168,67 @@ def gram_bound_ms(b: int, c: int, n: int, dtype, simt: bool = False) -> tuple[fl
     return max(ops, byt) * 1e3, ("operations" if ops >= byt else "bytes")
 
 
-def check_gram(results: dict) -> dict:
+def measure_gram(f) -> dict:
+    """K1 on one (B, C, N) input: the bars (max|Δ| / max|G| <= 1e-4 against
+    the plain version, <= 1e-5 against an f64 Gram for f32, two launches
+    bit-identical) and the times of the kernel, the plain version and
+    ``torch.bmm``, per call by events (host launch work included) and on
+    the device alone by a CUDA graph of 10 calls, beside the bound."""
     import torch
 
     from maua_style_tpu_torch.ops import gram as G
+
+    b, c, n = f.shape
+    got = G.gram(f)
+    torch.cuda.synchronize()
+    want = G.gram_reference(f)
+    err = float((got - want).abs().max())
+    rel = err / float(want.abs().max())
+    # both against an f64 Gram: which of the two sums is nearer exact
+    f64 = f.double()
+    exact = torch.bmm(f64, f64.transpose(1, 2))
+    scale = float(exact.abs().max())
+    rel64 = (float((got - exact).abs().max()) / scale, float((want - exact).abs().max()) / scale)
+    del f64, exact, want
+    what = f"gram {tuple(f.shape)} {f.dtype}"
+    if not rel <= 1e-4:
+        fail(f"{what}: max|d|/max|G| = {rel:.3e} > 1e-4")
+    if f.dtype == torch.float32 and not rel64[0] <= 1e-5:
+        fail(f"{what}: max|d|/max|G| = {rel64[0]:.3e} > 1e-5 against an f64 Gram")
+    if not torch.equal(G.gram(f), got):
+        fail(f"{what}: two launches differ (must be deterministic)")
+    del got
+    row = {"max_abs_err": err, "rel_err": rel, "kernel_rel_err_f64": rel64[0], "plain_rel_err_f64": rel64[1]}
+    ft = f.transpose(1, 2)
+    for key, fn in (("kernel", lambda: G.gram(f)), ("plain", lambda: G.gram_reference(f)),
+                    ("library", lambda: torch.bmm(f, ft))):
+        row[f"{key}_call_ms"] = time_ms(fn)
+        row[f"{key}_ms"] = graph_ms(fn)
+    row["bound_ms"], row["bound_by"] = gram_bound_ms(b, c, n, f.dtype)
+    row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+    return row
+
+
+def check_gram_backward(shape, gen) -> float:
+    """The backward of the Gram's autograd Function against autograd of
+    the plain version, f32: max|Δ| / max|g| <= 1e-4."""
+    import torch
+
+    from maua_style_tpu_torch.ops import gram as G
+
+    f = torch.randn(shape, device=gen.device, generator=gen).requires_grad_(True)
+    w = torch.randn((shape[0], shape[1], shape[1]), device=gen.device, generator=gen)
+    (gk,) = torch.autograd.grad((G._GramFn.apply(f) * w).sum(), f)
+    (gp,) = torch.autograd.grad((G.gram_reference(f) * w).sum(), f)
+    rel = float((gk - gp).abs().max() / gp.abs().max())
+    print(f"gram backward {tuple(shape)} float32: max|d|/max|g| = {rel:.3e}")
+    if not rel <= 1e-4:
+        fail(f"gram backward {tuple(shape)}: {rel:.3e} > 1e-4")
+    return rel
+
+
+def check_gram(results: dict) -> dict:
+    import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -159,46 +241,13 @@ def check_gram(results: dict) -> dict:
         for shape in main + ragged:
             b, c, n = shape
             f = torch.relu(torch.randn(shape, device=dev, generator=gen)).to(dtype)
-            got = G.gram(f)
-            torch.cuda.synchronize()
-            want = G.gram_reference(f)
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
-            # both against an f64 Gram: which of the two sums is nearer exact
-            f64 = f.double()
-            exact = torch.bmm(f64, f64.transpose(1, 2))
-            scale = float(exact.abs().max())
-            rel64 = (float((got - exact).abs().max()) / scale, float((want - exact).abs().max()) / scale)
-            del f64, exact
-            if not rel <= 1e-4:
-                fail(f"gram {tuple(shape)} {dtype}: max|d|/max|G| = {rel:.3e} > 1e-4")
-            if dtype == torch.float32 and not rel64[0] <= 1e-5:
-                fail(f"gram {tuple(shape)} {dtype}: max|d|/max|G| = {rel64[0]:.3e} > 1e-5 against an f64 Gram")
-            if not torch.equal(G.gram(f), got):
-                fail(f"gram {tuple(shape)} {dtype}: two launches differ (must be deterministic)")
             row = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "main_path_1024": shape in main,
-                   "max_abs_err": err, "rel_err": rel, "kernel_rel_err_f64": rel64[0], "plain_rel_err_f64": rel64[1]}
-            ft = f.transpose(1, 2)
-            # per call by events (host launch work included) and on the
-            # device alone by a CUDA graph of 10 calls
-            for key, fn in (("kernel", lambda: G.gram(f)), ("plain", lambda: G.gram_reference(f)),
-                            ("library", lambda: torch.bmm(f, ft))):
-                row[f"{key}_call_ms"] = time_ms(fn)
-                row[f"{key}_ms"] = graph_ms(fn)
-            row["bound_ms"], row["bound_by"] = gram_bound_ms(b, c, n, dtype)
+                   **measure_gram(f)}
             row["bound_simt_ms"] = gram_bound_ms(b, c, n, dtype, simt=True)[0]
             rows.append(row)
             print("gram", json.dumps(row))
 
-    # backward of the autograd Function against autograd of the plain version
-    f = torch.randn((1, 128, 65536), device=dev, generator=gen).requires_grad_(True)
-    w = torch.randn((1, 128, 128), device=dev, generator=gen)
-    (gk,) = torch.autograd.grad((G._GramFn.apply(f) * w).sum(), f)
-    (gp,) = torch.autograd.grad((G.gram_reference(f) * w).sum(), f)
-    rel = float((gk - gp).abs().max() / gp.abs().max())
-    print(f"gram backward float32: max|d|/max|g| = {rel:.3e}")
-    if not rel <= 1e-4:
-        fail(f"gram backward: {rel:.3e} > 1e-4")
+    check_gram_backward((1, 128, 65536), gen)
     results["gram"] = rows
     f32_main = [r for r in rows if r["main_path_1024"] and r["dtype"] == "float32"]
     return {
@@ -224,6 +273,90 @@ def check_gram(results: dict) -> dict:
         "faster_than_library": all(r["kernel_ms"] < r["library_ms"] for r in f32_main),
         "checked": True,
     }
+
+
+IV_HW, IV_STYLE_HW, IV_FRAMES, IV_STYLE_FRAMES = (576, 1024), (432, 768), 24, 24
+IV_SIZES, IV_ITERS, IV_GFW, IV_AFW = (256, 512, 724), (4, 4, 4), (18, 9, 7), 18
+
+
+def img_vid_gram_shapes() -> list[tuple[int, int, int, int]]:
+    """(size, gfw, C, N) of the style layers that the img_vid phase's Grams
+    see: relu1_1..relu5_1 of a gfw-frame window at each scale, of the
+    1024x576 pastiche and of the style video, which ``scale_styles``
+    resizes to about the content's area (VGG-19's 2x2 pools round down).
+    K1 gets each as a batch of per-frame Grams, (gfw, C, N), and as the
+    whole-window view, (1, gfw·C, N)."""
+    import math
+
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    out = set()
+    for size, gfw in zip(IV_SIZES, IV_GFW):
+        hw = scale_shape(IV_HW, size / max(IV_HW))
+        style_hw = scale_shape(IV_STYLE_HW, math.sqrt(hw[0] * hw[1] / (IV_STYLE_HW[0] * IV_STYLE_HW[1])))
+        for h, w in (hw, style_hw):
+            for c in (64, 128, 256, 512, 512):
+                out.add((size, gfw, c, h * w))
+                h, w = h // 2, w // 2
+    return sorted(out)
+
+
+def img_vid_gram_inputs() -> dict[str, set[tuple[int, int, int]]]:
+    """The (B, C, N) inputs K1 gets on the img_vid phase's path: the
+    per-frame batches ("frames") and the whole-window views ("window")."""
+    shapes = img_vid_gram_shapes()
+    return {"frames": {(gfw, c, n) for _, gfw, c, n in shapes},
+            "window": {(1, gfw * c, n) for _, gfw, c, n in shapes}}
+
+
+def check_video_gram(results: dict) -> dict:
+    """K1 at every img_vid shape: the whole-window views, (1, C', N) from
+    (1, 1152, 36864) to (1, 9216, 144), and the per-frame batches, (gfw, C,
+    N) from (18, 64, 36864) to (7, 512, 1125).  The same bars as phase 2's,
+    the times beside the bound, the partial buffer's bytes, the peak memory
+    of the largest whole-window shape, and the backward at C' = 9216 and at
+    the largest batch."""
+    import torch
+
+    from maua_style_tpu_torch.ops import gram as G
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for size, gfw, c0, n in img_vid_gram_shapes():
+        for kind, (b, c) in (("window", (1, gfw * c0)), ("frames", (gfw, c0))):
+            f = torch.relu(torch.randn((b, c, n), device=dev, generator=gen))
+            sp = G.gram_splits(b, c, n, sms)
+            row = {"size": size, "gfw": gfw, "kind": kind, "shape": [b, c, n], "tile": sp.tile, "pairs": sp.pairs,
+                   "splits": [sp.splits_diag, sp.splits_off],
+                   "partial_bytes": 4 * max(sp.splits_diag, sp.splits_off) * b * sp.pairs * sp.tile * sp.tile,
+                   "output_bytes": 4 * b * c * c, **measure_gram(f)}
+            rows.append(row)
+            print("img_vid gram", json.dumps(row))
+            del f
+    # peak memory of one launch at the largest output and N
+    c, n = max(((r["shape"][1], r["shape"][2]) for r in rows if r["kind"] == "window"), key=lambda t: (t[0], t[1]))
+    f = torch.relu(torch.randn((1, c, n), device=dev, generator=gen))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = G.gram(f)
+    torch.cuda.synchronize()
+    peak = {"shape": [1, c, n], "input_bytes": 4 * c * n, "peak_bytes_above_input": torch.cuda.max_memory_allocated() - base}
+    print("video gram peak memory", json.dumps(peak))
+    del f, out
+    brel = [check_gram_backward(shape, gen) for shape in ((1, 9216, 144), (18, 64, 36864))]
+    torch.cuda.empty_cache()
+    results["gram_img_vid"] = {"rows": rows, "peak_memory": peak, "backward_rel": brel}
+    out = {}
+    for kind in ("window", "frames"):
+        kr = [r for r in rows if r["kind"] == kind]
+        out[kind] = {"ms": sum(r["kernel_ms"] for r in kr), "library_ms": sum(r["library_ms"] for r in kr),
+                     "plain_ms": sum(r["plain_ms"] for r in kr), "bound_ms": sum(r["bound_ms"] for r in kr),
+                     "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in kr), "shapes": len(kr)}
+    return out
 
 
 def corr_bound_ms(b: int, c: int, h: int, w: int, k: int) -> tuple[float, str]:
@@ -310,6 +443,38 @@ def check_correlation(results: dict) -> dict:
         "library_ms": None,  # no single PyTorch call computes a cost volume
         "checked": True,
     }
+
+
+@contextlib.contextmanager
+def patched(*targets):
+    """While inside, ``obj.name`` calls ``wrapper(original, *args,
+    **kwargs)`` for each (obj, name, wrapper) in ``targets``; the originals
+    come back on exit.  The replacement is a plain function, so a method
+    patched on a class still gets its ``self``."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for (obj, name, fn), (_, _, wrapper) in zip(saved, targets):
+        def call(*a, _fn=fn, _wrapper=wrapper, **kw):
+            return _wrapper(_fn, *a, **kw)
+
+        setattr(obj, name, call)
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+
+def seconds_into(spans: dict, name: str):
+    """A ``patched`` wrapper that adds each call's wall seconds to
+    ``spans[name]``."""
+    def wrapper(fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+
+    return wrapper
 
 
 def reset_counts() -> None:
@@ -677,6 +842,266 @@ def run_vid_img(results: dict) -> dict[str, int]:
     return counts
 
 
+def write_img_vid_inputs(d: str) -> tuple[str, str]:
+    """A 1024x576 content image and a 24-frame 768x432 style video whose
+    pattern moves (2, 3) px per frame, a .npy stack."""
+    import numpy as np
+    from PIL import Image
+
+    h, w = IV_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    content = np.stack([
+        (np.sin(xx / 37.0) * 0.5 + 0.5) * 255,
+        (yy / (h - 1)) * 255,
+        (((xx - 500) ** 2 + (yy - 290) ** 2) < 200 ** 2) * 200 + 30,
+    ], -1)
+    c_path = os.path.join(d, "content.png")
+    Image.fromarray(content.astype(np.uint8)).save(c_path)
+    sh, sw = IV_STYLE_HW
+    sy, sx = np.mgrid[0 : sh + 80, 0 : sw + 80].astype(np.float32)
+    st = np.sin(sx / 9.0) * np.cos(sy / 13.0) * 127 + 128
+    canvas = np.stack([st, 255 - st, np.roll(st, 40, 0)], -1)
+    frames = np.stack([canvas[2 * t : 2 * t + sh, 3 * t : 3 * t + sw] for t in range(IV_STYLE_FRAMES)])
+    s_path = os.path.join(d, "stylevid.npy")
+    np.save(s_path, frames.astype(np.uint8))
+    return c_path, s_path
+
+
+def img_vid_expected_launches() -> int:
+    """K1 launches of the img_vid phase, from the code's schedule: each
+    scale runs ceil(T / gfw) + 1 windows (engine/windows.py); each window
+    first captures its targets from an --avg_frame_window-frame stretch of
+    the style video, max(afw - gfw + 1, 1) style windows of 5 static and 5
+    whole-window Grams each, then runs its iterations, 5 static Grams plus
+    5 whole-window Grams each (a window holds gfw frames, as the target)."""
+    import math
+
+    total = 0
+    for gfw, it in zip(IV_GFW, IV_ITERS):
+        windows = math.ceil(IV_FRAMES / gfw) + 1
+        total += windows * (10 * max(IV_AFW - gfw + 1, 1) + 10 * it)
+    return total
+
+
+def run_img_vid(results: dict) -> dict[str, int]:
+    """``style.main --transfer_type img_vid`` with the defaults' window
+    structure (gfw 18,9,7, afw 18, video_style_factor 100, temporal blend
+    0.5, L-BFGS history 100), VGG-19 f32 --precision highest, --init random,
+    cut to 24 frames, sizes 256/512/724 and 4 iterations a window."""
+    import numpy as np
+    import scipy.ndimage
+    import torch
+
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch import losses, style
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine import optimize as engine_optimize
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.resize import scale_shape
+    from maua_style_tpu_torch.pipelines import img_vid as img_vid_pipeline
+
+    run_dir = os.path.join(OUT, "img_vid")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_img_vid_inputs(run_dir)
+    argv = [
+        "--transfer_type", "img_vid", "--content", c_path, "--style", s_path, "--output_dir", run_dir,
+        "--image_sizes", ",".join(map(str, IV_SIZES)), "--num_iters", ",".join(map(str, IV_ITERS)),
+        "--num_frames", str(IV_FRAMES), "--gram_frame_window", ",".join(map(str, IV_GFW)),
+        "--avg_frame_window", str(IV_AFW), "--video_style_factor", "100", "--temporal_blend", "0.5",
+        "--optimizer", "lbfgs", "--lbfgs_num_correction", "100", "--init", "random", "--model_file", "vgg19",
+        "--allow_random_weights", "--precision", "highest", "--compute_dtype", "float32", "--seed", "0", "--gpu", "0",
+    ]
+    scales = []
+    seen = {"frames": set(), "window": set()}  # the (B, C, N) inputs K1 got
+    cur = {}
+
+    def timed_optimize(fn, self, content, styles, init, num_iters, **kw):
+        cur.clear()
+        cur.update(run_ms=[], capture_s=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, content, styles, init, num_iters, **kw)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        # the dynamic term's value at the scale's first iteration, by the
+        # plain version (no kernel launch), outside the timed run
+        dynamic = {}
+        with torch.no_grad():
+            for l, (a, t) in cur.pop("probe", {}).items():
+                vg = G.gram_reference(a.reshape(1, -1, a.shape[2] * a.shape[3]))[0] / a.numel()
+                dynamic[l] = float(torch.mean((vg - t) ** 2)) if t.shape == vg.shape else None
+        scales.append({"hw": list(np.shape(init)[1:3]), "frames": int(np.shape(init)[0]), "iters": num_iters,
+                       "gfw": kw.get("gram_frame_window"), "wall_s": wall_s, "log": self.last_loss_log,
+                       "out_finite": bool(np.isfinite(out).all()), "dynamic": dynamic, **cur})
+        return out
+
+    def timed_run(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        cur["run_ms"].append(((time.perf_counter() - t0) * 1e3, a[-1], kw.get("frozen")))
+        return out
+
+    def timed_capture(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        cur["capture_s"] += time.perf_counter() - t0
+        return out
+
+    def dynamic_probe(fn, pastiche, acts, targets, cfg, scale=None):
+        # a copy of the scale's first activations and dynamic targets, for
+        # timed_optimize to read the dynamic term from
+        vt = targets.get("style_video", {})
+        if vt and "probe" not in cur:
+            cur["probe"] = {l: (acts[l].detach().float().clone(), t) for l, t in vt.items()}
+        return fn(pastiche, acts, targets, cfg, scale)
+
+    def recording(kind, view):
+        def wrapper(fn, x, use_covariance=False):
+            seen[kind].add(view(x.shape))
+            return fn(x, use_covariance)
+
+        return wrapper
+
+    host = {}  # the pipeline's host steps, seconds
+    with patched((StyleEngine, "optimize", timed_optimize), (StyleEngine, "_run", timed_run),
+                 (StyleEngine, "style_video_targets", timed_capture),
+                 (engine_optimize, "evaluate_losses", dynamic_probe),
+                 (losses, "batch_gram", recording("frames", lambda s: (s[0], s[1], s[2] * s[3]))),
+                 (losses, "video_gram", recording("window", lambda s: (1, s[0] * s[1], s[2] * s[3]))),
+                 *((obj, name, seconds_into(host, name)) for obj, name in (
+                     (scipy.ndimage, "gaussian_filter"), (img_vid_pipeline, "match_histogram"),
+                     (img_vid_pipeline, "resize_bilinear_np"), (mio, "save_tensor_to_file"),
+                     (mio, "process_style_videos"), (img_vid_pipeline, "build_engine")))):
+        reset_counts()
+        t0 = time.perf_counter()
+        style.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+
+    want = img_vid_expected_launches()
+    print(f"img_vid main path: {wall:.1f} s, launches {counts} (expected gram {want}, correlation 0)")
+    if counts != {"gram": want, "correlation": 0}:
+        fail(f"img_vid launches {counts} != gram {want}, correlation 0")
+    for kind, checked in img_vid_gram_inputs().items():
+        if seen[kind] != checked:
+            fail(f"img_vid's {kind} Gram inputs {sorted(seen[kind])} != phase 2's {sorted(checked)}")
+    if len(scales) != len(IV_SIZES):
+        fail(f"{len(scales)} scales optimised, expected {len(IV_SIZES)}")
+
+    stem = os.path.join(run_dir, "content_stylevid")
+    rows = []
+    for size, gfw, it, sc in zip(IV_SIZES, IV_GFW, IV_ITERS, scales):
+        hw = tuple(scale_shape(IV_HW, size / max(IV_HW)))
+        n_windows = -(-IV_FRAMES // gfw) + 1
+        log = sc["log"]
+        if tuple(sc["hw"]) != hw or sc["frames"] != IV_FRAMES or sc["gfw"] != gfw or not sc["out_finite"]:
+            fail(f"scale {size}: engine saw {sc['frames']} frames of {sc['hw']} at gfw {sc['gfw']} (expected {hw}, {gfw})")
+        if log is None or log.shape[0] != n_windows * it or not np.isfinite(log).all():
+            fail(f"scale {size}: loss log {None if log is None else log.shape} not finite / wrong length")
+        dyn = sc["dynamic"]
+        if len(dyn) != 5 or not all(v is not None and np.isfinite(v) and v > 0 for v in dyn.values()):
+            fail(f"scale {size}: dynamic term {dyn} not non-zero and finite at every style layer")
+        for art in (f"{stem}_{size}",) + ((stem,) if size == IV_SIZES[-1] else ()):
+            arr = np.load(art + ".npy") if os.path.exists(art + ".npy") else None
+            if not os.path.exists(art + ".mp4") and (arr is None or arr.shape != (IV_FRAMES, *hw, 3)):
+                fail(f"{art}: no .mp4 and no ({IV_FRAMES}, {hw}, 3) .npy stack ({None if arr is None else arr.shape})")
+        run_s = sum(ms for ms, _, _ in sc["run_ms"]) / 1e3
+        row = {"size": size, "hw": list(hw), "gfw": gfw, "windows": n_windows, "iters_per_window": it,
+               "wall_s": sc["wall_s"], "capture_s": sc["capture_s"], "iterations_s": run_s,
+               "ms_per_iter": run_s * 1e3 / (n_windows * it),
+               "ms_per_iter_window0": sc["run_ms"][0][0] / sc["run_ms"][0][1],
+               "frozen": [f for _, _, f in sc["run_ms"]], "dynamic_mse_first_iter": dyn,
+               "first_total": float(log[0].sum()), "last_total": float(log[-1].sum())}
+        rows.append(row)
+        print("img_vid", json.dumps(row))
+    summary = {"wall_s": wall, "launches": counts, "expected_gram": want,
+               "optimize_s": sum(r["wall_s"] for r in rows), "capture_s": sum(r["capture_s"] for r in rows),
+               "host_s": wall - sum(r["wall_s"] for r in rows), "host_steps_s": host, "scales": rows, "argv": argv}
+    print("img_vid summary", json.dumps({k: v for k, v in summary.items() if k not in ("scales", "argv")}))
+    results["img_vid"] = summary
+    shutil.rmtree(run_dir)  # the stacks and frames, checked above
+    return counts
+
+
+def profile_img_vid_window(results: dict) -> None:
+    """torch.profiler over 3 iterations of img_vid's first window (all gfw
+    frames move, L-BFGS history 100, f32, TF32 off) at the 256 and the 724
+    scale of the phase's run, after a warm-up window; the style targets
+    come from the style video's first gfw frames.  Report only: the split
+    of the device time between the convolutions, K1, the whole-window
+    Gram's backward and the elementwise passes over its matrices."""
+    import math
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.losses import LossConfig
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    spec = select_model("vgg19")
+    eng = StyleEngine(spec, init_params(spec), LossConfig(video_style_factor=100.0), device="cuda",
+                      precision="highest", lbfgs_history=100)
+    rng = np.random.default_rng(5)
+    out = {}
+    for size, gfw in ((IV_SIZES[0], IV_GFW[0]), (IV_SIZES[-1], IV_GFW[-1])):
+        hw = scale_shape(IV_HW, size / max(IV_HW))
+        shw = scale_shape(IV_STYLE_HW, math.sqrt(hw[0] * hw[1] / (IV_STYLE_HW[0] * IV_STYLE_HW[1])))
+        content = rng.normal(0, 50, (1, *hw, 3)).astype(np.float32)
+        video = rng.normal(0, 50, (gfw, *shw, 3)).astype(np.float32)
+        init = rng.normal(0, 20, (gfw, *hw, 3)).astype(np.float32)
+        kw = dict(transfer_type="img_vid", gram_frame_window=gfw)
+        eng.optimize(content, [video], init, 2, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.optimize(content, [video], init, 3, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = {"size": size, "gfw": gfw, "iters": 3, **device_profile(prof, wall_ms),
+                   "what": f"one {gfw}-frame window at {hw[1]}x{hw[0]}: the target capture, then 3 L-BFGS iterations"}
+        print("profile img_vid window", json.dumps(summary))
+        out[str(size)] = summary
+    results["profile_img_vid_window"] = out
+
+
+def check_img_vid_against_cpu(results: dict) -> None:
+    """A small img_vid window run (6 frames of 64x96, gfw 3, a 6-frame
+    style video, Adam, 3 iterations a window) on the GPU and on the CPU,
+    TF32 off: the same losses within rtol 1e-3, as phase 4's image check."""
+    import numpy as np
+
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.losses import LossConfig
+    from maua_style_tpu_torch.models import init_params, select_model
+
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    rng = np.random.default_rng(3)
+    content = rng.normal(0, 50, (1, 64, 96, 3)).astype(np.float32)
+    video = rng.normal(0, 50, (6, 64, 64, 3)).astype(np.float32)
+    init = rng.normal(0, 20, (6, 64, 96, 3)).astype(np.float32)
+    logs, outs = [], []
+    for device in ("cuda", "cpu"):
+        eng = StyleEngine(spec, params, LossConfig(video_style_factor=100.0), optimizer="adam", device=device,
+                          precision="highest")
+        outs.append(eng.optimize(content, [video], init, 3, transfer_type="img_vid", gram_frame_window=3))
+        logs.append(eng.last_loss_log)
+    worst = float(np.max(np.abs(logs[0] - logs[1]) / np.maximum(np.abs(logs[1]), 1e-6)))
+    pix = float(np.abs(outs[0] - outs[1]).max())
+    print(f"img_vid window GPU vs CPU: max rel loss diff {worst:.3e}, max |d pixel| {pix:.3e}")
+    if not (np.isfinite(outs[0]).all() and worst <= 1e-3):
+        fail(f"img_vid GPU and CPU runs disagree: {worst:.3e}")
+    results["img_vid_vs_cpu"] = {"max_rel_loss": worst, "max_abs_pixel": pix}
+
+
 def check_flow_against_cpu(results: dict) -> None:
     """SPyNet + PWC (the same seeded weights) on a 64x128 pair on the GPU,
     through K2, and on the CPU, through the plain version the CPU tests
@@ -752,6 +1177,163 @@ def profile_vid_frame(results: dict) -> None:
     results["profile_vid_frame"] = summary
 
 
+FLAG_SIZE, FLAG_ITERS = 512, 6
+DET_SIDE = 1024
+
+
+def drive_flags(results: dict) -> None:
+    """Paths no earlier phase drives, once each, briefly (report only; a
+    failure still fails the run): img_img at 512² with --compute_dtype
+    bfloat16, --precision high, --optimizer adam and --original_colors,
+    FLAG_ITERS iterations; and vid_img on a 3-frame 256x144 clip with
+    --init prev_warp --original_colors (the host frame path), 2 passes.
+    Checks the artifacts, finite loss logs and both kernels' launches."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch.engine import StyleEngine
+
+    run_dir = os.path.join(OUT, "flags")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    base = ["--content", c_path, "--style", s_path, "--image_sizes", str(FLAG_SIZE), "--num_iters", str(FLAG_ITERS),
+            "--model_file", "vgg19", "--allow_random_weights", "--seed", "0", "--gpu", "0"]
+    logs = []
+    orig_optimize, orig_frame = StyleEngine.optimize, StyleEngine.optimize_frame
+
+    def logged(self, *a, **kw):
+        out = orig_optimize(self, *a, **kw)
+        logs.append(self.last_loss_log)
+        return out
+
+    rows = []
+    StyleEngine.optimize = logged
+    try:
+        for flag in (["--compute_dtype", "bfloat16"], ["--precision", "high"], ["--optimizer", "adam"],
+                     ["--original_colors"]):
+            out_dir = os.path.join(run_dir, flag[-1].lstrip("-"))
+            logs.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            style.main(base + ["--output_dir", out_dir] + flag)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            png = os.path.join(out_dir, f"content_style_{FLAG_SIZE}.png")
+            want = {"gram": STYLE_LAYERS * (FLAG_ITERS + 1), "correlation": 0}
+            finite = len(logs) == 1 and logs[0].shape[0] == FLAG_ITERS and bool(np.isfinite(logs[0]).all())
+            with Image.open(png) as img:
+                img_ok = img.size == (FLAG_SIZE, FLAG_SIZE)
+            row = {"flags": flag, "wall_s": wall, "launches": counts, "expected": want, "finite": finite,
+                   "first_total": float(logs[0][0].sum()), "last_total": float(logs[0][-1].sum())}
+            rows.append(row)
+            print("flag", json.dumps(row))
+            if counts != want or not finite or not img_ok:
+                fail(f"img_img {flag}: launches {counts} (expected {want}), finite log {finite}, png {img_ok}")
+
+        # vid_img: --init prev_warp through the host frame path
+        frames_dir = os.path.join(run_dir, "clip")
+        os.makedirs(frames_dir)
+        yy, xx = np.mgrid[0:144 + 16, 0:256 + 16].astype(np.float32)
+        canvas = np.stack([(np.sin(xx / 11.0) * 0.5 + 0.5) * 255, (np.cos(yy / 7.0) * 0.5 + 0.5) * 255,
+                           ((xx - 120) ** 2 + (yy - 70) ** 2 < 40 ** 2) * 200 + 30], -1)
+        clip = np.stack([canvas[2 * t : 2 * t + 144, 3 * t : 3 * t + 256] for t in range(3)]).astype(np.uint8)
+        np.save(os.path.join(frames_dir, "clip.npy"), clip)
+        frame_logs = []
+
+        def frame_logged(self, *a, **kw):
+            out = orig_frame(self, *a, **kw)
+            frame_logs.append(self.last_loss_log.cpu().numpy())
+            return out
+
+        StyleEngine.optimize_frame = frame_logged
+        logs.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        style.main(["--transfer_type", "vid_img", "--content", os.path.join(frames_dir, "clip.npy"), "--style", s_path,
+                    "--output_dir", os.path.join(run_dir, "vid"), "--flow_models", "spynet,pwc", "--image_sizes", "256",
+                    "--num_iters", "8", "--passes_per_scale", "2", "--init", "prev_warp", "--original_colors",
+                    "--model_file", "vgg19", "--allow_random_weights", "--seed", "0", "--gpu", "0"])
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        all_logs = logs + frame_logs
+        want = {"gram": STYLE_LAYERS + STYLE_LAYERS * 3 * 2 * 4, "correlation": 5 * 2}
+        finite = len(all_logs) == 6 and all(np.isfinite(l).all() for l in all_logs)
+        pngs = sorted(os.listdir(os.path.join(run_dir, "vid", "clip_style", "256")))
+        row = {"flags": ["--transfer_type", "vid_img", "--init", "prev_warp", "--original_colors"], "wall_s": wall,
+               "launches": counts, "expected": want, "finite": finite, "frames_optimised": len(all_logs),
+               "pngs": len(pngs), "host_path": len(logs), "device_path": len(frame_logs)}
+        rows.append(row)
+        print("flag", json.dumps(row))
+        if counts != want or not finite or len(pngs) != 6:
+            fail(f"vid_img prev_warp/original_colors: launches {counts} (expected {want}), finite {finite}, {len(pngs)} PNGs")
+    finally:
+        StyleEngine.optimize, StyleEngine.optimize_frame = orig_optimize, orig_frame
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    results["flags"] = rows
+    shutil.rmtree(run_dir)
+
+
+def check_determinism(results: dict) -> None:
+    """The 1024² img_img step twice from one seed, with cuDNN's default
+    algorithms and with ``torch.backends.cudnn.deterministic``: every
+    activation of the forward, the Grams and losses, the gradient at each
+    activation (in backward order) and at the pastiche, and the pastiche
+    after 5 L-BFGS iterations.  Report only: prints the first tensor of
+    that order that differs between the two runs."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw
+    from maua_style_tpu_torch.losses import LossConfig, evaluate_losses
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops.gram import batch_gram
+
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    rng = np.random.default_rng(4)
+    content = rng.normal(0, 50, (1, DET_SIDE, DET_SIDE, 3)).astype(np.float32)
+    style_img = rng.normal(0, 50, (1, DET_SIDE, DET_SIDE, 3)).astype(np.float32)
+    init = rng.normal(0, 1, (1, DET_SIDE, DET_SIDE, 3)).astype(np.float32)
+
+    def trace() -> list[tuple[str, "torch.Tensor"]]:
+        eng = StyleEngine(spec, params, LossConfig(), device="cuda", precision="highest", lbfgs_history=100)
+        cfg = eng.loss_cfg
+        names = [l.name for l in eng.spec.layers if l.kind == "relu"]
+        targets = {"content": eng.content_targets(content), "style": eng.style_targets([style_img], [1.0])}
+        p = to_nchw(init, eng.device).requires_grad_(True)
+        acts = eng.extractor(p, names)
+        total, per = evaluate_losses(p, acts, targets, cfg, {})
+        grads = torch.autograd.grad(total, [acts[n] for n in reversed(names)] + [p])
+        out = [(f"act {n}", acts[n].detach()) for n in names]
+        out += [(f"gram {l}", batch_gram(acts[l].detach())) for l in cfg.style_layers]
+        out += [("losses", per.detach())]
+        out += [(f"grad {n}", g) for n, g in zip(list(reversed(names)) + ["pastiche"], grads)]
+        opt = eng._make_optimizer()
+        p5, _, _ = eng._run(p.detach(), opt, opt.init(p.detach()), targets, {}, 5)
+        out.append(("pastiche after 5 iterations", p5))
+        return [(n, t.detach().cpu()) for n, t in out]
+
+    report = {}
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            a, b = trace(), trace()
+            differ = [(n, float((x.double() - y.double()).abs().max()), float(y.abs().max()))
+                      for (n, x), (_, y) in zip(a, b) if not torch.equal(x, y)]
+            key = "deterministic" if det else "default"
+            report[key] = {"tensors": len(a), "differ": len(differ), "first": differ[0] if differ else None,
+                           "pastiche_max_abs_diff": float((a[-1][1] - b[-1][1]).abs().max())}
+            print(f"determinism ({key} cuDNN): {len(differ)} of {len(a)} tensors differ between two runs; "
+                  f"first: {differ[0] if differ else None}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    results["determinism_1024"] = report
+
+
 def main() -> int:
     import torch
 
@@ -781,7 +1363,26 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     results = {"card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s, "ptxas_correlation": ptxas}
+    try:
+        gram, corr = run_phases(results)
+    finally:
+        # the video runs' artifacts (hundreds of MB) go even when a phase fails
+        for d in ("vid_img", "img_vid", "flags"):
+            shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
+        with open(os.path.join(OUT, "results.json"), "w") as f:
+            json.dump(results, f, indent=1)
+
+    print(json.dumps({"kernels": [gram, corr]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def run_phases(results: dict) -> tuple[dict, dict]:
+    """Phases 2 to 7; returns the kernels line's K1 and K2 entries."""
     gram = check_gram(results)
+    gram["img_vid_shapes"] = check_video_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -789,20 +1390,20 @@ def main() -> int:
     vid = run_vid_img(results)
     check_flow_against_cpu(results)
     profile_vid_frame(results)
-    # launches: each path's own count, read right after it ran from zero
-    gram["launches"], gram["launches_by_path"] = img["gram"], {"img_img": img["gram"], "vid_img": vid["gram"]}
-    corr["launches"] = vid["correlation"]
-    corr["launches_by_path"] = {"img_img": img["correlation"], "vid_img": vid["correlation"]}
-    results["kernels"] = [gram, corr]
-    with open(os.path.join(OUT, "results.json"), "w") as f:
-        json.dump(results, f, indent=1)
     shutil.rmtree(os.path.join(OUT, "vid_img"))  # ~200 MB of frames and flow, checked above
-
-    print(json.dumps({"kernels": [gram, corr]}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
+    ivid = run_img_vid(results)
+    profile_img_vid_window(results)
+    check_img_vid_against_cpu(results)
+    drive_flags(results)
+    check_determinism(results)
+    # launches: each path's own count, read right after it ran from zero
+    gram["launches"] = img["gram"]
+    gram["launches_by_path"] = {"img_img": img["gram"], "vid_img": vid["gram"], "img_vid": ivid["gram"]}
+    corr["launches"] = vid["correlation"]
+    corr["launches_by_path"] = {"img_img": img["correlation"], "vid_img": vid["correlation"],
+                                "img_vid": ivid["correlation"]}
+    results["kernels"] = [gram, corr]
+    return gram, corr
 
 
 if __name__ == "__main__":

@@ -24,8 +24,15 @@ tensor, and a uint8 image comes back.  ``optimize_frames`` and
 ``optimize_frame_chain`` keep the JAX package's signatures and results,
 but where JAX runs one ``vmap`` / ``lax.scan`` program (to save TPU
 executable loads and round trips) they loop over ``optimize_frame`` on the
-host.  The window, pyramid and video-style runners (img_vid) come with a
-later slice.
+host.
+
+img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
+circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
+pastiche stays on the host, each window goes up, runs, and is scattered
+back.  Windows after the first freeze the frames earlier windows styled,
+by a gradient mask or, without run-state checkpoints, by the frozen-split
+runner (``_run``).  JAX's fused pyramid program (``optimize_pyramid``) only
+saves TPU executable loads and is not ported.
 """
 
 from __future__ import annotations
@@ -37,13 +44,26 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from ..losses import LossConfig, capture_content_targets, capture_style_targets, capture_temporal_targets, evaluate_losses
+from ..losses import (
+    LossConfig,
+    capture_content_targets,
+    capture_style_targets,
+    capture_style_video_targets,
+    capture_temporal_targets,
+    evaluate_losses,
+)
 from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
 from .checkpoint import load_state, save_state
+from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
+from .windows import compute_windows, overlap_grad_mask, window_overlaps
+
+# img_vid's frozen-split window runner (see _run); False selects the masked
+# runner, so that a test can compare the two
+_WINDOW_SPLIT = True
 
 _TF32 = {"highest": False, "high": True, "default": True}
 
@@ -134,6 +154,20 @@ class StyleEngine:
         self._style_target_cache[key] = targets
         return targets
 
+    def style_video_targets(
+        self, style_videos: Sequence, blend_weights: Sequence[float], gram_frame_window: int
+    ) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+        """Static and dynamic targets averaged over every window of each
+        (T, H, W, 3) style video (JAX optimize.py:162-179), under no-grad."""
+        videos = [to_nchw(v, self.device) for v in style_videos]
+        return capture_style_video_targets(self._extract, videos, blend_weights, self.loss_cfg, int(gram_frame_window))
+
+    def _set_style_video_targets(self, targets: dict, style_videos, blend_weights, gfw: int) -> None:
+        static, dynamic = self.style_video_targets(style_videos, blend_weights, gfw)
+        targets["style"] = static
+        if dynamic:
+            targets["style_video"] = dynamic
+
     # -- strength normalisation (reference optim.py:176-178) ----------------
 
     def _strength_scale(self, targets: dict) -> tuple[tuple[str, float], ...]:
@@ -158,20 +192,71 @@ class StyleEngine:
             return LBFGS(self.learning_rate, self.lbfgs_history, method=self.lbfgs_method, history_dtype=hdt)
         return Adam(self.learning_rate)
 
-    def _run(self, pastiche, opt, opt_state, targets, scale, n_iters):
-        """``n_iters`` steps; returns (pastiche, opt_state, (n_iters, n_losses) log)."""
+    def _run(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None):
+        """``n_iters`` steps; returns (pastiche, opt_state, (n_iters, n_losses) log).
+
+        img_vid's window runners (JAX optimize.py:235-341): ``mask``, a
+        (T, 1, 1, 1) tensor, multiplies the gradient before the optimiser
+        update.  ``frozen=(fo, eo)`` is the frozen split: the first ``fo``
+        and last ``eo`` frames of the window have a zero gradient, so they
+        never move (Adam's moments stay zero there, and so does every
+        L-BFGS (s, y) pair).  Their activations are extracted once, under
+        no-grad; each iteration runs forward and backward on the middle
+        slice alone, the losses see the activations concatenated in window
+        order, and ``opt_state`` covers the middle slice only."""
         cfg = self.loss_cfg
         logs = []
-        p = pastiche
+        p, fixed = pastiche, None
+        if frozen is not None:
+            fo, eo = frozen
+            t_w = pastiche.shape[0]
+            front, end, p = pastiche[:fo], pastiche[t_w - eo :], pastiche[fo : t_w - eo]
+            with torch.no_grad():
+                fixed = self._extract(torch.cat([front, end]), cfg.all_layers)
         for _ in range(n_iters):
             p = p.detach().requires_grad_(True)
-            total, per = evaluate_losses(p, self._extract(p, cfg.all_layers), targets, cfg, scale)
+            acts, full = self._extract(p, cfg.all_layers), p
+            if fixed is not None:
+                acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in acts.items()}
+                full = torch.cat([front, p, end])
+            total, per = evaluate_losses(full, acts, targets, cfg, scale)
             (grad,) = torch.autograd.grad(total, p)
-            upd, opt_state = opt.update(grad.float(), opt_state)
+            grad = grad.float() if mask is None else grad.float() * mask
+            upd, opt_state = opt.update(grad, opt_state)
             p = p.detach() + upd
             logs.append(per.detach())
+        if fixed is not None:
+            p = torch.cat([front, p, end])
         log = torch.stack(logs) if logs else p.new_zeros((0, len(cfg.loss_names())))
         return p, opt_state, log
+
+    def _iterate(self, p, opt, st, targets, scale, num_iters, done, after_chunk, *, save_iter, print_iter,
+                 checkpoint_every, profile_dir, mask=None, frozen=None):
+        """Iterations ``done`` .. ``num_iters`` in chunks of ``save_iter``,
+        ``checkpoint_every`` and ``print_iter``; the loss values stay on the
+        device within a chunk.  ``after_chunk(p, st, done)`` runs after each
+        chunk but the last.  Returns (p, st, [each chunk's host log])."""
+        chunk = num_iters if save_iter <= 0 else save_iter
+        if checkpoint_every > 0:
+            chunk = min(chunk, checkpoint_every)
+        if print_iter > 0:
+            chunk = min(chunk, print_iter)
+        logs = []
+        while done < num_iters:
+            this = min(chunk, num_iters - done)
+            if profile_dir is not None:
+                p, st, log = self._profiled_run(profile_dir, p, opt, st, targets, scale, this, mask=mask, frozen=frozen)
+                profile_dir = None
+            else:
+                p, st, log = self._run(p, opt, st, targets, scale, this, mask=mask, frozen=frozen)
+            done += this
+            logs.append(log.cpu().numpy())
+            if print_iter > 0 and (done // print_iter > (done - this) // print_iter or done == num_iters):
+                # fire on crossing each print_iter boundary (reference optim.py:228-229)
+                print(f"Iteration {done} / {num_iters}, Loss: {float(logs[-1][-1].sum()):g}")
+            if done < num_iters:
+                after_chunk(p, st, done)
+        return p, st, logs
 
     def optimize(
         self,
@@ -182,8 +267,11 @@ class StyleEngine:
         *,
         transfer_type: str = "img_img",
         blend_weights: Sequence[float] | None = None,
-        temporal_warp=None,
+        gram_frame_window: int | None = None,
+        avg_frame_window: int = -1,
+        temporal_target=None,
         temporal_weights=None,
+        temporal_warp=None,
         save_iter: int = 0,
         save_callback: Callable[[np.ndarray, int], None] | None = None,
         run_checkpoint: str | None = None,
@@ -191,29 +279,47 @@ class StyleEngine:
         profile_dir: str | None = None,
         print_iter: int = 0,
     ) -> np.ndarray:
-        """Optimise a (1, H, W, 3) pastiche against content + style targets;
-        returns the result as a host array.
+        """Optimise a (1, H, W, 3) pastiche, or for img_vid a (T, H, W, 3)
+        one, against content + style targets; returns the result as a host
+        array.
 
         ``run_checkpoint``: directory for interruptible runs — saves the
-        pastiche, the optimizer state and the iteration at every chunk end
-        and resumes with the optimizer state intact.  ``profile_dir``: a
-        ``torch.profiler`` chrome trace of the first chunk.
+        pastiche (img_vid: and the whole output), the optimizer state, the
+        window and the iteration at every chunk end and resumes with the
+        optimizer state intact.  ``profile_dir``: a ``torch.profiler``
+        chrome trace of the first chunk.
 
         vid_img's host path (``--original_colors``) passes its temporal
         target as ``temporal_warp=(prev_frame, warp_map)``, warped here on
-        the device, with ``temporal_weights``, the (1, H, W, 1) reliability.
+        the device, with ``temporal_weights``, the (1, H, W, 1) reliability;
+        ``temporal_target`` is an already warped target.
+
+        img_vid: ``gram_frame_window`` frames a window; ``avg_frame_window``
+        -1 averages the style targets over whole style videos, else over an
+        ``avg_frame_window``-frame stretch of each style per window.
+        ``save_callback`` gets the window's pastiche numbered
+        ``w * num_iters + done``.
         """
-        if transfer_type not in ("img_img", "vid_img"):
-            raise NotImplementedError(f"transfer_type={transfer_type!r} is not ported yet (ROADMAP Slice C: img_vid)")
+        if transfer_type not in ("img_img", "vid_img", "img_vid"):
+            raise ValueError(f"unknown transfer_type {transfer_type!r}")
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
-        targets = {"content": self.content_targets(content), "style": self.style_targets(styles, blend_weights)}
+        targets = {"content": self.content_targets(content)}
+        weights = None if temporal_weights is None else to_nchw(temporal_weights, self.device)
         if temporal_warp is not None:
             src, wmap = temporal_warp
             warped = grid_sample(to_nchw(src, self.device), _on(np.asarray(wmap, np.float32), self.device))
-            weights = None if temporal_weights is None else to_nchw(temporal_weights, self.device)
             targets["temporal"] = capture_temporal_targets(warped, weights)
-        scale = dict(self._strength_scale(targets))
+        elif temporal_target is not None:
+            targets["temporal"] = capture_temporal_targets(to_nchw(temporal_target, self.device), weights)
+        loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
+        if transfer_type == "img_vid":
+            if gram_frame_window is None:
+                raise ValueError("img_vid needs gram_frame_window")
+            return self._optimize_windows(targets, styles, blend_weights, init, num_iters, int(gram_frame_window),
+                                          avg_frame_window, save_callback, run_checkpoint, loop)
 
+        targets["style"] = self.style_targets(styles, blend_weights)
+        scale = dict(self._strength_scale(targets))
         pastiche = to_nchw(init, self.device)
         opt = self._make_optimizer()
         opt_state = opt.init(pastiche)
@@ -223,44 +329,105 @@ class StyleEngine:
             if restored is not None:
                 pastiche, opt_state, _, done = restored
 
-        chunk = num_iters if save_iter <= 0 else save_iter
-        if checkpoint_every > 0:
-            chunk = min(chunk, checkpoint_every)
-        if print_iter > 0:
-            chunk = min(chunk, print_iter)
-        loss_logs = []
-        profiled = profile_dir is None
-        while done < num_iters:
-            this = min(chunk, num_iters - done)
-            if not profiled:
-                pastiche, opt_state, log = self._profiled_run(profile_dir, pastiche, opt, opt_state, targets, scale, this)
-                profiled = True
-            else:
-                pastiche, opt_state, log = self._run(pastiche, opt, opt_state, targets, scale, this)
-            done += this
-            loss_logs.append(log.cpu().numpy())
-            if print_iter > 0 and (done // print_iter > (done - this) // print_iter or done == num_iters):
-                # fire on crossing each print_iter boundary (reference optim.py:228-229)
-                print(f"Iteration {done} / {num_iters}, Loss: {float(loss_logs[-1][-1].sum()):g}")
-            if save_callback is not None and done < num_iters:
-                save_callback(to_nhwc(pastiche), done)
-            if run_checkpoint is not None and done < num_iters:
-                save_state(run_checkpoint, pastiche, opt_state, 0, done)
+        def after_chunk(p, st, done):
+            if save_callback is not None:
+                save_callback(to_nhwc(p), done)
+            if run_checkpoint is not None:
+                save_state(run_checkpoint, p, st, 0, done)
+
+        pastiche, _, logs = self._iterate(pastiche, opt, opt_state, targets, scale, num_iters, done, after_chunk, **loop)
+        if run_checkpoint is not None:
+            shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
+        self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
+        return to_nhwc(pastiche)
+
+    def _optimize_windows(self, targets, styles, blend_weights, init, num_iters, gfw, avg_frame_window,
+                          save_callback, run_checkpoint, loop) -> np.ndarray:
+        """img_vid's window loop (JAX optimize.py:907-1069)."""
+        dev = self.device
+        styles = [np.asarray(s, np.float32) for s in styles]
+        output = np.array(init, np.float32)  # the whole pastiche stays on the host
+        total = output.shape[0]
+        windows = compute_windows(total, [s.shape[0] for s in styles], gfw)
+        if avg_frame_window == -1:
+            self._set_style_video_targets(targets, styles, blend_weights, gfw)
+        opt = self._make_optimizer()
+
+        def blob(p):
+            return {"pastiche": p, "output": torch.from_numpy(output)}
+
+        resume = None
+        if run_checkpoint is not None:
+            like = torch.empty((len(wrapping_indices(total, 0, gfw)), 3, *output.shape[1:3]), device=dev)
+            # restored to the device of the first template; the state's
+            # template only gives shapes and dtypes
+            resume = load_state(run_checkpoint, {"pastiche": like, "output": torch.empty(output.shape)},
+                                opt.init(like.to("meta")))
+            if resume is not None:
+                output = resume[0]["output"].cpu().numpy()
+
+        logs = []
+        for w, start in enumerate(windows[0]):
+            if resume is not None and w < resume[2]:
+                continue  # finished before the checkpoint
+            front, end = window_overlaps(windows[0], w, start, gfw, total)
+            idx = wrapping_indices(total, start, gfw)
+            if avg_frame_window != -1:
+                current = [
+                    s[wrapping_indices(s.shape[0], windows[n + 1][w], avg_frame_window)] if s.shape[0] != 1 else s
+                    for n, s in enumerate(styles)
+                ]
+                self._set_style_video_targets(targets, current, blend_weights, gfw)
+            # sized to the actual window: a 1-frame pastiche has 1-frame windows
+            t_w = len(idx)
+            mask, frozen = None, None
+            if w != 0:
+                fo, eo = max(0, min(front, t_w)), (min(end, t_w) if end > 0 else 0)
+                # a checkpointed run keeps the masked runner: its saved
+                # optimizer state then has the whole window's shape
+                if run_checkpoint is None and _WINDOW_SPLIT and fo + eo > 0 and t_w - fo - eo > 0:
+                    frozen = (fo, eo)
+                else:
+                    mask = torch.from_numpy(overlap_grad_mask(t_w, w, front, end)).to(dev)
+            scale = dict(self._strength_scale(targets))
+            pastiche = to_nchw(output[idx], dev)
+            opt_state = opt.init(pastiche if frozen is None else pastiche[frozen[0] : t_w - frozen[1]])
+            done = 0
+            if resume is not None:
+                # a checkpoint from a window's end (done 0) starts this window
+                # afresh from the saved output (JAX would resume it from the
+                # previous window's pastiche and optimizer state)
+                if resume[3] > 0:
+                    pastiche, opt_state, done = resume[0]["pastiche"], resume[1], resume[3]
+                resume = None
+
+            def after_chunk(p, st, done, w=w):
+                if save_callback is not None:
+                    save_callback(to_nhwc(p), w * num_iters + done)
+                if run_checkpoint is not None:
+                    save_state(run_checkpoint, blob(p), st, w, done)
+
+            pastiche, opt_state, wlogs = self._iterate(pastiche, opt, opt_state, targets, scale, num_iters, done,
+                                                       after_chunk, mask=mask, frozen=frozen, **loop)
+            loop["profile_dir"] = None  # the first window's first chunk only
+            logs += wlogs
+            output[idx] = to_nhwc(pastiche)
+            if run_checkpoint is not None and w + 1 < len(windows[0]):
+                save_state(run_checkpoint, blob(pastiche), opt_state, w + 1, 0)
 
         if run_checkpoint is not None:
             shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
+        self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
+        return output
 
-        self.last_loss_log = np.concatenate(loss_logs, axis=0) if loss_logs else None
-        return to_nhwc(pastiche)
-
-    def _profiled_run(self, profile_dir, *run_args):
+    def _profiled_run(self, profile_dir, *run_args, **run_kw):
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
-            out = self._run(*run_args)
+            out = self._run(*run_args, **run_kw)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         os.makedirs(profile_dir, exist_ok=True)

@@ -3,8 +3,9 @@ maua_style_tpu/io/image.py; reference: load.py:15-100).
 
 Host arrays are (1, H, W, 3) float32, BGR, mean-subtracted — the JAX
 package's layout, so both packages' artifacts compare byte for byte.  PNG
-only; the vid_img frames are PNGs too, and its video is muxed by
-pipelines/vid_img_mux.
+for images; the vid_img frames are PNGs too, and its video is muxed by
+pipelines/vid_img_mux.  A (T > 1)-frame tensor saves through
+``io/video.save_video``.
 """
 
 from __future__ import annotations
@@ -74,7 +75,8 @@ def save_image(tensor: np.ndarray, filename: str, content_path: str | None = Non
 
 def save_tensor_to_file(tensor: np.ndarray, args, iteration=None, size=None, filename=None) -> str:
     """Save with the reference's filename schema (reference load.py:55-74):
-    {output}[_{size}[_{iteration}]].png."""
+    {output}[_{size}[_{iteration}]].png, or .mp4 for a video (T > 1 frames;
+    see ``video.save_video`` for its fallback without ffmpeg)."""
     if filename is None:
         if size is None:
             filename = f"{args.output}"
@@ -84,7 +86,11 @@ def save_tensor_to_file(tensor: np.ndarray, args, iteration=None, size=None, fil
             filename = f"{args.output}_{size}_{iteration}"
     tensor = np.asarray(tensor)
     if tensor.shape[0] > 1:
-        raise NotImplementedError("video saving is not ported yet (ROADMAP Slice B, item 9)")
+        from .video import save_video
+
+        out = f"{filename}.mp4"
+        save_video(tensor, out, fps=getattr(args, "fps", 24), ffmpeg_args=getattr(args, "ffmpeg", None))
+        return out
     out = f"{filename}.png"
     save_image(
         tensor,

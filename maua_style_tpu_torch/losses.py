@@ -11,12 +11,14 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
 - style: per-frame Gram / nelement, MSE to the blended target, averaged
   over frames (loss.py:141-157).  Grams go through ``ops.gram.batch_gram``
   (the CUDA kernel for CUDA tensors) and stay float32 for bf16 activations.
+- dynamic style (img_vid, ``video_style_factor`` > 0): the whole-window
+  Gram of a T-frame window (``ops.gram.video_gram``) / its nelement, MSE
+  to the window target, times ``video_style_factor`` (loss.py:84-91,
+  160-170).
 - tv: anisotropic L1 total variation (loss.py:224-233).
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
-
-The dynamic ("video") style Gram comes with the img_vid slice.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from .ops.gram import batch_gram
+from .ops.gram import batch_gram, video_gram
 
 
 class _ScaleGradients(torch.autograd.Function):
@@ -120,6 +122,37 @@ def capture_style_targets(
     return targets
 
 
+@torch.no_grad()
+def capture_style_video_targets(
+    extract_fn: ExtractFn,
+    style_videos: Sequence[torch.Tensor],
+    blend_weights: Sequence[float],
+    cfg: LossConfig,
+    gram_frame_window: int,
+) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor]]:
+    """Static and dynamic targets averaged over every ``gram_frame_window``
+    window of each (T, 3, H, W) style video (reference optim.py:69-90).
+    Image styles (one frame) add no dynamic target: their window is not
+    gfw frames long (reference loss.py:165-166)."""
+    static: dict[str, torch.Tensor] = {}
+    dynamic: dict[str, torch.Tensor] = {}
+    gfw = gram_frame_window
+    for video, bw in zip(style_videos, blend_weights):
+        n_windows = max(video.shape[0] - gfw + 1, 1)
+        w_eff = bw / n_windows
+        for start in range(n_windows):
+            acts = extract_fn(video[start : start + gfw], cfg.style_layers)
+            for l in cfg.style_layers:
+                a = acts[l]
+                gram = batch_gram(a, cfg.use_covariance) / math.prod(a.shape[1:])
+                contrib = w_eff * gram.mean(dim=0)
+                static[l] = static[l] + contrib if l in static else contrib
+                if cfg.video_style_factor > 0 and a.shape[0] == gfw > 1:
+                    vg = w_eff * (video_gram(a, cfg.use_covariance) / a.numel())
+                    dynamic[l] = dynamic[l] + vg if l in dynamic else vg
+    return static, dynamic
+
+
 def capture_temporal_targets(warp_image: torch.Tensor, warp_weights: torch.Tensor | None) -> dict[str, Any]:
     """Pixel-space temporal target (reference optim.py:35-47)."""
     t = {"target": warp_image.detach()}
@@ -168,15 +201,21 @@ def evaluate_losses(
         values.append(v)
 
     style_targets = targets.get("style", {})
+    video_targets = targets.get("style_video", {})
     for l in cfg.style_layers:
         strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
         v = zero
+        a = acts[l]
         if l in style_targets:
-            a = acts[l]
             grams = batch_gram(a, cfg.use_covariance) / math.prod(a.shape[1:])  # (B, C, C)
             tgt = style_targets[l]
             for i in range(b):
                 v = v + _term(_mse(grams[i], tgt), strength, b, cfg.normalize_gradients)
+        # the dynamic term, where the target is a window of b frames
+        # (image styles are skipped, loss.py:165-166)
+        if cfg.video_style_factor > 0 and l in video_targets and video_targets[l].shape[0] == b * a.shape[1]:
+            vg = video_gram(a, cfg.use_covariance) / a.numel()
+            v = v + cfg.video_style_factor * _term(_mse(vg, video_targets[l]), strength, b, cfg.normalize_gradients)
         values.append(v)
 
     if cfg.tv_weight > 0:
@@ -204,6 +243,7 @@ __all__ = [
     "tv_loss",
     "capture_content_targets",
     "capture_style_targets",
+    "capture_style_video_targets",
     "capture_temporal_targets",
     "evaluate_losses",
 ]

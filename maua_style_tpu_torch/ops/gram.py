@@ -15,6 +15,9 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
   outside any kernel, as in the JAX package.
 - ``batch_gram``: (B, C, H, W) -> (B, C, C), with covariance centering in
   plain torch around the Function.
+- ``video_gram``: the whole-window ("dynamic texture") Gram of img_vid,
+  (T, C, H, W) -> (T·C, T·C): ``batch_gram`` of the (1, T·C, H, W) view,
+  so it runs the same kernel.
 """
 
 from __future__ import annotations
@@ -164,6 +167,17 @@ def batch_gram(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return _GramFn.apply(f)
 
 
+def video_gram(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
+    """Whole-window Gram: (T, C, H, W) -> (T·C, T·C) float32 (JAX
+    ``ops/gram.py`` ``video_gram``; reference loss.py:84-91 with T > 1).  In
+    contiguous NCHW the (1, T·C, H·W) view holds the frame-major rows of
+    JAX's (T·C, HW) feature matrix, and centering each row is JAX's
+    ``_video_mean``; autograd through the centering gives its
+    ``df - _video_mean(df)``."""
+    t, c = x.shape[:2]
+    return batch_gram(x.reshape(1, t * c, *x.shape[2:]), use_covariance)[0]
+
+
 def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     """Gram of a single frame: (C, H, W) or (1, C, H, W) -> (C, C)
     (without the /nelement normalisation; callers divide)."""
@@ -172,4 +186,4 @@ def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return batch_gram(x, use_covariance)[0]
 
 
-__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "gram_matrix"]
+__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "video_gram", "gram_matrix"]

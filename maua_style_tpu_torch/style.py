@@ -5,8 +5,9 @@ Usage::
 
     python -m maua_style_tpu_torch.style --content c.png --style s.png [...]
 
-Runs on CUDA device 0 unless ``--gpu c`` asks for the CPU.
-``--transfer_type img_img`` and ``vid_img`` are ported; ``img_vid`` raises.
+Runs on CUDA device 0 unless ``--gpu c`` asks for the CPU.  All three
+transfer types of the JAX CLI are ported: ``img_img``, ``vid_img`` and
+``img_vid``.
 """
 
 from __future__ import annotations
@@ -15,8 +16,6 @@ import numpy as np
 
 from . import config
 
-_LATER = {"img_vid": "ROADMAP Queue 1, Slice C (img_vid, item 12)"}
-
 
 def main(argv=None) -> None:
     args = config.get_args(argv)
@@ -24,14 +23,14 @@ def main(argv=None) -> None:
     if args.seed >= 0:
         np.random.seed(args.seed)
 
-    if args.transfer_type in _LATER:
-        raise NotImplementedError(
-            f"--transfer_type {args.transfer_type} is not ported yet: {_LATER[args.transfer_type]}"
-        )
     if args.transfer_type == "vid_img":
         from .pipelines.vid_img import vid_img
 
         vid_img(args)
+    elif args.transfer_type == "img_vid":
+        from .pipelines.img_vid import img_vid
+
+        img_vid(args)
     else:
         from .pipelines.img_img import img_img
 

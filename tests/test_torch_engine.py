@@ -1,6 +1,6 @@
 """The port's StyleEngine on the CPU: chunking, printed loss lines,
 snapshots, run-state checkpoints and resume, and the entry points' refusal
-of transfer types that are not ported yet."""
+of what is not ported yet."""
 
 import os
 
@@ -102,17 +102,23 @@ def test_bf16_compute_keeps_f32_losses():
 
 
 @pytest.mark.parametrize("transfer_type", ["vid_img", "img_vid"])
-def test_unported_transfer_types_raise(transfer_type):
-    if transfer_type == "vid_img":
-        # vid_img is ported; the flow nets it leaves to Slice D raise
-        from maua_style_tpu_torch import config, flow
+def test_unported_transfer_types_raise(transfer_type, monkeypatch):
+    """All three transfer types are ported; what each leaves to Slice D, the
+    LiteFlowNet and UnFlow flow nets, raises.  img_vid without --gpu c and
+    without CUDA raises too, and an unknown transfer type raises in the
+    engine."""
+    from maua_style_tpu_torch import config, flow
 
-        args = config.get_args(["--gpu", "c", "--transfer_type", "vid_img", "--flow_models", "spynet,unflow"])
-        with pytest.raises(NotImplementedError, match="Slice D"):
-            flow.get_flow_model(args)
-        return
-    with pytest.raises(NotImplementedError, match="Slice"):
-        style.main(["--gpu", "c", "--transfer_type", transfer_type])
-    content, style_img, init = _images()
-    with pytest.raises(NotImplementedError, match="Slice"):
-        _engine().optimize(content, [style_img], init, 1, transfer_type=transfer_type)
+    net = "unflow" if transfer_type == "vid_img" else "liteflownet"
+    args = config.get_args(["--gpu", "c", "--transfer_type", transfer_type, "--flow_models", f"spynet,{net}"])
+    with pytest.raises(NotImplementedError, match="Slice D"):
+        flow.get_flow_model(args)
+    if transfer_type == "img_vid":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="--gpu c"):
+            style.main(["--transfer_type", "img_vid"])
+        content, style_img, init = _images()
+        with pytest.raises(ValueError, match="transfer_type"):
+            _engine().optimize(content, [style_img], init, 1, transfer_type="vid_vid")
+        with pytest.raises(ValueError, match="gram_frame_window"):
+            _engine().optimize(content, [style_img], init, 1, transfer_type="img_vid")

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from maua_style_tpu.ops.gram import batch_gram as jax_batch_gram
+from maua_style_tpu.ops.gram import video_gram as jax_video_gram
 from maua_style_tpu.ops.pallas_gram import gram_nhwc, gram_pallas
 from maua_style_tpu_torch.ops import gram as G
 
@@ -37,6 +38,44 @@ def test_batch_gram_values_and_grads_match_jax(use_covariance, shape):
     assert got.dtype == torch.float32 and got.shape == (shape[0], shape[3], shape[3])
     want_dx = np.transpose(np.asarray(want_dx), (0, 3, 1, 2))
     np.testing.assert_allclose(xt.grad.numpy(), want_dx, atol=1e-5 * float(np.abs(want_dx).max()), rtol=0)
+
+
+@pytest.mark.parametrize("use_covariance", [False, True])
+@pytest.mark.parametrize("shape", [(3, 9, 11, 8), (4, 6, 5, 16), (1, 7, 7, 5)])
+def test_video_gram_values_and_grads_match_jax(use_covariance, shape):
+    """The whole-window Gram: (T, H, W, C) -> (T·C, T·C) in JAX, the
+    (1, T·C, H·W) view of NCHW here; the gradient against JAX's custom VJP."""
+    t, c = shape[0], shape[3]
+    rng = np.random.default_rng(2)
+    x = rng.normal(0.5, 2.0, shape).astype(np.float32)
+    w = rng.normal(size=(t * c, t * c)).astype(np.float32)
+
+    want, vjp = jax.vjp(lambda a: jax_video_gram(a, use_covariance), jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(w))
+
+    xt = _nchw(x).requires_grad_(True)
+    got = G.video_gram(xt, use_covariance)
+    assert got.dtype == torch.float32 and got.shape == (t * c, t * c)
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * float(np.abs(np.asarray(want)).max()))
+    want_dx = np.transpose(np.asarray(want_dx), (0, 3, 1, 2))
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx, atol=1e-4 * float(np.abs(want_dx).max()), rtol=0)
+
+
+def test_video_gram_is_batch_gram_of_the_row_view():
+    """Frame-major rows: block (a, b) of the video Gram is frame a's
+    channels against frame b's, and each diagonal block is that frame's
+    own Gram; the CPU path launches no kernel."""
+    before = G.gram.launches
+    x = torch.randn(3, 4, 5, 6)
+    v = G.video_gram(x)
+    f = x.reshape(3, 4, 30)
+    for a in range(3):
+        for b in range(3):
+            torch.testing.assert_close(v[4 * a : 4 * a + 4, 4 * b : 4 * b + 4], f[a] @ f[b].T, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(G.video_gram(x[:1]), G.batch_gram(x[:1])[0], rtol=0, atol=0)
+    assert G.gram.launches == before
 
 
 def test_gram_reference_matches_pallas_interpret():

@@ -65,3 +65,44 @@ def test_cuda_kernel_unaligned_base_pointer(dtype):
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
     if dtype == torch.float32:
         assert _f64_rel_err(got, f) <= 1e-5
+
+
+# img_vid's whole-window Grams: the (1, T·C, H·W) view of a T-frame window.
+# 18 frames of relu4_1/5_1 at the 256 and 512 scales (C' = 9216, a k-loop
+# of 144 and 576 positions under a 340 MB output); a ragged C' = 7·64 with
+# N % 4 = 1; and a relu1_1 window at the 1448 scale's order of size, whose
+# 2.23e9 bytes of input pass 2**31.
+VIDEO_VIEWS = [(18, 512, 144), (18, 512, 576), (7, 64, 4501), (7, 64, 1245184)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,c,n", VIDEO_VIEWS)
+def test_cuda_video_gram_against_f64(t, c, n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.relu(torch.randn(t, c, 1, n, device="cuda"))
+    before = G.gram.launches
+    got = G.video_gram(x)
+    torch.cuda.synchronize()
+    assert G.gram.launches == before + 1 and got.shape == (t * c, t * c)
+    assert _f64_rel_err(got[None], x.view(1, t * c, n)) <= 1e-5
+    torch.testing.assert_close(G.video_gram(x), got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_video_gram_backward_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn(18, 512, 12, 12, device="cuda")
+    w = torch.randn(18 * 512, 18 * 512, device="cuda")
+    for cov in (False, True):
+        xk = x.clone().requires_grad_(True)
+        (G.video_gram(xk, cov) * w).sum().backward()
+        xp = x.clone().requires_grad_(True)
+        f = xp.reshape(1, 18 * 512, 144)
+        if cov:
+            f = f - f.mean(dim=2, keepdim=True)
+        (G.gram_reference(f)[0] * w).sum().backward()
+        assert float((xk.grad - xp.grad).abs().max() / xp.grad.abs().max()) <= 1e-4

@@ -92,3 +92,51 @@ def test_match_histogram_same_under_seed(mode, n_sources):
     np.testing.assert_array_equal(got, want)
     assert after_port == after_jax
     assert match_histogram(target, src, mode=False) is target
+
+
+def test_video_io_matches_jax(tmp_path, monkeypatch):
+    """img_vid's video IO against the JAX package's: preprocess_video of a
+    .npy stack, a frame directory and an image (one frame), save_video's
+    fallback without ffmpeg (numbered PNGs + a .npy stack, which reads back
+    as the saved frames), save_tensor_to_file's .mp4 branch, and
+    process_style_videos' expansion and blend-weight normalisation."""
+    from maua_style_tpu.io import video as jax_video
+    from maua_style_tpu_torch.io import video
+
+    for mod in (video, jax_video):
+        monkeypatch.setattr(mod, "ffmpeg_available", lambda: False)
+    rng = np.random.default_rng(7)
+    np.save(tmp_path / "a.npy", rng.integers(0, 255, (3, 12, 16, 3), dtype=np.uint8))
+    os.makedirs(tmp_path / "frames")
+    for i in range(2):
+        _png(tmp_path / "frames" / f"{i:03d}.png", 10 + i, 12, 16)
+    img = _png(tmp_path / "b.png", 3, 12, 16)
+    for src in (str(tmp_path / "a.npy"), str(tmp_path / "frames"), img):
+        got, want = video.preprocess_video(src), jax_video.preprocess_video(src)
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == np.float32 and got.ndim == 4
+
+    frames = video.preprocess_video(str(tmp_path / "a.npy"))
+    out = video.save_video(frames, str(tmp_path / "out" / "v.mp4"))
+    jax_video.save_video(frames, str(tmp_path / "jout" / "v.mp4"))
+    assert out == str(tmp_path / "out" / "v.npy")
+    np.testing.assert_array_equal(np.load(out), np.load(tmp_path / "jout" / "v.npy"))
+    assert sorted(os.listdir(tmp_path / "out" / "v_frames")) == ["00001.png", "00002.png", "00003.png"]
+    np.testing.assert_allclose(video.preprocess_video(out), frames, atol=0.5 + 1e-4)
+    args = argparse.Namespace(output=str(tmp_path / "out" / "w"), fps=24, ffmpeg=None)
+    assert mio.save_tensor_to_file(frames, args, size=16) == str(tmp_path / "out" / "w_16.mp4")
+    assert os.path.exists(tmp_path / "out" / "w_16.npy")
+
+    # a directory without images expands to the videos in it
+    os.makedirs(tmp_path / "vids")
+    gif = [Image.fromarray(f) for f in rng.integers(0, 255, (3, 8, 8, 3), dtype=np.uint8)]
+    gif[0].save(tmp_path / "vids" / "g.gif", save_all=True, append_images=gif[1:])
+    for weights in (None, "1,3,4"):
+        styles = [str(tmp_path / "frames"), img, str(tmp_path / "vids")]
+        ns = [argparse.Namespace(style=styles, style_blend_weights=weights) for _ in range(2)]
+        got, want = video.process_style_videos(ns[0]), jax_video.process_style_videos(ns[1])
+        assert len(got) == len(want) == 3 and got[2].shape[0] == 3
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert ns[0].style_blend_weights == ns[1].style_blend_weights
+    assert video.VIDEO_EXTENSIONS == jax_video.VIDEO_EXTENSIONS

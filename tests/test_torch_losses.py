@@ -107,3 +107,50 @@ def test_strength_scale_matches_jax():
     got = teng._strength_scale({"content": teng.content_targets(content), "style": teng.style_targets([style], [1.0])})
     assert got == want
     assert StyleEngine(tspec, params_from_jax(params), tl.LossConfig(), device="cpu")._strength_scale({}) == ()
+
+
+@pytest.mark.parametrize("cov,normalize", [(False, True), (True, False)])
+def test_video_targets_and_dynamic_term_match_jax(cov, normalize):
+    """img_vid's static + dynamic targets over every window of a style
+    video and an image style (which adds no dynamic target), and the
+    dynamic term of evaluate_losses with its gradient, against JAX."""
+    cfg = dict(normalize_gradients=normalize, use_covariance=cov, video_style_factor=100.0, content_layers=(),
+               temporal_weight=0.0)
+    jcfg, tcfg = jl.LossConfig(**cfg), tl.LossConfig(**cfg)
+    jspec, params, ext = _setup(4)
+    rng = np.random.default_rng(4)
+    video = rng.normal(0, 40, (5, 24, 20, 3)).astype(np.float32)
+    image = rng.normal(0, 40, (1, 20, 24, 3)).astype(np.float32)
+    pastiche = rng.normal(0, 30, (3, 32, 32, 3)).astype(np.float32)
+    gfw = 3
+
+    jextract = partial(lambda x, layers: jax_ext.apply_extractor(params, x, jspec, layers, HIGHEST))
+    js, jd = jl.capture_style_video_targets(jextract, [jnp.asarray(video), jnp.asarray(image)], [0.6, 0.4], jcfg, gfw)
+    ts, td = tl.capture_style_video_targets(ext, [_nchw(video), _nchw(image)], [0.6, 0.4], tcfg, gfw)
+    assert set(ts) == set(js) == set(tcfg.style_layers) and set(td) == set(jd) == set(tcfg.style_layers)
+    for got, want in ((ts, js), (td, jd)):
+        for l, t in want.items():
+            assert got[l].shape == t.shape
+            np.testing.assert_allclose(got[l].numpy(), np.asarray(t), atol=1e-5 * float(jnp.abs(t).max()))
+
+    jt, tt = {"style": js, "style_video": jd}, {"style": ts, "style_video": td}
+
+    def jloss(p):
+        return jl.evaluate_losses(p, jextract(p, jcfg.all_layers), jt, jcfg)
+
+    (jtotal, jper), jgrad = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jnp.asarray(pastiche))
+    p = _nchw(pastiche).requires_grad_(True)
+    total, per = tl.evaluate_losses(p, ext(p, tcfg.all_layers), tt, tcfg)
+    total.backward()
+    np.testing.assert_allclose(per.detach().numpy(), np.asarray(jper), rtol=1e-5, atol=1e-6)
+    jg = _nchw(jgrad).numpy()
+    np.testing.assert_allclose(p.grad.numpy(), jg, atol=1e-4 * float(np.abs(jg).max()), rtol=0)
+
+    # the dynamic term is there: without it the style values drop
+    static_only = tl.evaluate_losses(p.detach(), ext(p.detach(), tcfg.all_layers), {"style": ts}, tcfg)[1]
+    assert bool((per.detach()[: len(tcfg.style_layers)] > static_only[: len(tcfg.style_layers)]).all())
+    # a window of another length than the target's is skipped, as in JAX
+    two = p.detach()[:2]
+    skipped = tl.evaluate_losses(two, ext(two, tcfg.all_layers), tt, tcfg)[1]
+    want_skipped = jl.evaluate_losses(jnp.asarray(pastiche[:2]), jextract(jnp.asarray(pastiche[:2]), jcfg.all_layers), jt, jcfg)[1]
+    np.testing.assert_allclose(skipped.numpy(), np.asarray(want_skipped), rtol=1e-5, atol=1e-6)
