@@ -19,11 +19,15 @@ Phases, each of which must pass (nothing is caught and passed over):
    bars and times at every K1 input of phase 6's path: its windows' per-
    frame batches (gfw, C, H·W) and whole-window views (1, gfw·C, H·W) at
    its three scales, with the partial buffer's bytes, the peak memory of
-   the largest view and the backward at C' = 9216 and at B = 18.
+   the largest view and the backward at C' = 9216 and at B = 18; and at
+   the NCA trainer's ten inputs, VGG-16's five style layers of a batch of
+   4 CA states of 128² and of the 128² style target, with the backward at
+   (4, 64, 16384) and (4, 512, 64).
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
-   pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, and
-   at the 1 x 1 level of a 64² input (bars: max|Δ| / max|corr| <= 1e-5
+   pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
+   the 1 x 1 level of a 64² input, at LiteFlowNet's five levels (d = 3) and
+   UnFlow's one (d = 20, s = 2) for 8 pairs of 1024x576 frames (bars: max|Δ| / max|corr| <= 1e-5
    against the plain version, the same against an f64 cost volume, two
    launches bit-identical).  Times (K1 and K2): CUDA events, median of 7
    after warm-up, around one call ("call", host launch work included) or
@@ -45,7 +49,11 @@ Phases, each of which must pass (nothing is caught and passed over):
    random weights.  Checks every artifact of the schema, finite .flo files
    and loss logs, and the K1 and K2 launch counts; then SPyNet + PWC on the
    GPU and on the CPU (TF32 off), and a torch.profiler window over one
-   later-pass 1024x576 frame (report only).
+   later-pass 1024x576 frame (report only).  Then the same clip with
+   ``--flow_models unflow,liteflownet`` at size 1024 only, 20 iterations
+   over 2 passes (the same checks; K2 launches 1 a forward for UnFlow and
+   5 for LiteFlowNet), and each of the two nets on the GPU against the
+   CPU.
 6. img_vid main path: ``style.main --transfer_type img_vid`` on a synthetic
    1024x576 content image and a 24-frame 768x432 style video whose pattern
    moves a few pixels per frame, with the defaults' window structure
@@ -60,6 +68,15 @@ Phases, each of which must pass (nothing is caught and passed over):
    first activations); a torch.profiler window over one img_vid window
    at 256 and at 724 (report only); then a 6-frame window run on the GPU
    and on the CPU (TF32 off).
+6b. Neural CA: ``pipelines.nca_train.train`` at the JAX defaults (12
+   channels, hidden 96, a pool of 1024 states of 128² on the card, batch 4,
+   32-96 CA steps, VGG-16 f32 with seeded random weights), cut to 40 steps
+   with a checkpoint every 5: finite losses, a learned w2, the artifacts,
+   K1's inputs against phase 2's and its launches (5 + 5 a step); the
+   median ms per step and the peak memory.  Then ``nca_gen.main`` on the
+   last checkpoint, 90 frames of each video (evolution, a 4-checkpoint
+   grid, ``--text``), seconds per frame; and one training step on the GPU
+   and on the CPU from the same draws (losses within rtol 1e-3).
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -359,6 +376,40 @@ def check_video_gram(results: dict) -> dict:
     return out
 
 
+NCA_GRID, NCA_BATCH = 128, 4
+
+
+def nca_gram_shapes() -> list[tuple[int, int, int]]:
+    """(B, C, N) of K1's inputs on the NCA phase's path: VGG-16's relu1_1 ..
+    relu5_1 of a training batch of 4 CA states of 128² and of the 128²
+    style thumbnail (B = 1)."""
+    return [(b, c, n) for b in (NCA_BATCH, 1) for c, n in vgg_style_shapes(NCA_GRID)]
+
+
+def check_nca_gram(results: dict) -> dict:
+    """K1 at the NCA trainer's ten input shapes, with phase 2's bars and
+    times, and the backward at the largest and the smallest batch shape."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for shape in nca_gram_shapes():
+        f = torch.relu(torch.randn(shape, device=dev, generator=gen))
+        row = {"shape": list(shape), "kind": "batch" if shape[0] == NCA_BATCH else "target", **measure_gram(f)}
+        rows.append(row)
+        print("nca gram", json.dumps(row))
+        del f
+    brel = [check_gram_backward(shape, gen) for shape in ((NCA_BATCH, 64, 16384), (NCA_BATCH, 512, 64))]
+    results["gram_nca"] = {"rows": rows, "backward_rel": brel}
+    step = [r for r in rows if r["kind"] == "batch"]  # one training step's forward Grams
+    return {"ms": sum(r["kernel_ms"] for r in step), "call_ms": sum(r["kernel_call_ms"] for r in step),
+            "plain_ms": sum(r["plain_ms"] for r in step), "library_ms": sum(r["library_ms"] for r in step),
+            "bound_ms": sum(r["bound_ms"] for r in step),
+            "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows), "shapes": len(rows)}
+
+
 def corr_bound_ms(b: int, c: int, h: int, w: int, k: int) -> tuple[float, str]:
     """max(operations / peak, bytes / bandwidth): 2·C operations for each of
     the B·H·W·K outputs; f1 and f2 read once (4·B·H·W·C bytes each) and the
@@ -375,6 +426,17 @@ def pwc_levels(height: int, width: int) -> list[tuple[int, int, int]]:
     return [(c, h64 >> lvl, w64 >> lvl) for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))]
 
 
+def liteflownet_levels(height: int, width: int) -> list[tuple[int, int, int]]:
+    """(C, H, W) of LiteFlowNet's five correlation levels (6..2, d = 3)."""
+    h64, w64 = -(-height // 64) * 64, -(-width // 64) * 64
+    return [(c, h64 >> lvl, w64 >> lvl) for lvl, c in ((6, 192), (5, 128), (4, 96), (3, 64), (2, 32))]
+
+
+def unflow_level(height: int, width: int) -> tuple[int, int, int]:
+    """(C, H, W) of UnFlow's one correlation (d = 20, s = 2) at 1/8."""
+    return 256, -(-height // 64) * 8, -(-width // 64) * 8
+
+
 def check_correlation(results: dict) -> dict:
     import torch
 
@@ -387,6 +449,9 @@ def check_correlation(results: dict) -> dict:
         for b in (1, 8):
             shapes += [(f"pwc {frame[1]}x{frame[0]}", b, c, h, w, 4, 1) for c, h, w in pwc_levels(*frame)]
     shapes += [("d3", 1, 128, 68, 120, 3, 1), ("d20s2", 1, 256, 48, 64, 20, 2), ("pwc 64x64", 1, 196, 1, 1, 4, 1)]
+    # the vid_img phase with UnFlow + LiteFlowNet: 8 pairs of 1024x576 frames
+    shapes += [("liteflownet 1024x576", 8, c, h, w, 3, 1) for c, h, w in liteflownet_levels(*VID_HW)]
+    shapes += [("unflow 1024x576", 8, *unflow_level(*VID_HW), 20, 2)]
     rows = []
     for tag, b, c, h, w, d, s in shapes:
         f1 = torch.randn((b, c, h, w), device=dev, generator=gen)
@@ -441,6 +506,10 @@ def check_correlation(results: dict) -> dict:
         "bound_share": sum(r["bound_ms"] for r in main) / sum(r["kernel_ms"] for r in main),
         "bound_share_by_level": [r["bound_share"] for r in main],
         "library_ms": None,  # no single PyTorch call computes a cost volume
+        # one forward of each net added by the UnFlow + LiteFlowNet phase
+        "by_net": {tag.split()[0]: {k: sum(r[f"{k}_ms"] for r in rows if r["tag"] == tag)
+                                    for k in ("kernel", "kernel_call", "plain", "bound")}
+                   for tag in ("liteflownet 1024x576", "unflow 1024x576")},
         "checked": True,
     }
 
@@ -720,17 +789,29 @@ def write_video(d: str) -> tuple[str, str]:
     return v_path, s_path
 
 
-def vid_argv(v_path: str, s_path: str, run_dir: str) -> list[str]:
+# the UnFlow + LiteFlowNet vid_img phase: phase 5's clip at 1024 only
+VD_FLOW, VD_SIZES, VD_ITERS, VD_PASSES = "unflow,liteflownet", (1024,), (20,), 2
+# K2 launches per forward of each flow net
+K2_PER_FORWARD = {"spynet": 0, "pwc": 5, "unflow": 1, "liteflownet": 5}
+
+
+def vid_argv(v_path: str, s_path: str, run_dir: str, flow_models: str = "spynet,pwc", sizes=VID_SIZES,
+             iters=VID_ITERS, passes: int = VID_PASSES) -> list[str]:
     return [
         "--transfer_type", "vid_img", "--content", v_path, "--style", s_path, "--output_dir", run_dir,
-        "--flow_models", "spynet,pwc", "--image_sizes", ",".join(map(str, VID_SIZES)),
-        "--num_iters", ",".join(map(str, VID_ITERS)), "--passes_per_scale", str(VID_PASSES),
+        "--flow_models", flow_models, "--image_sizes", ",".join(map(str, sizes)),
+        "--num_iters", ",".join(map(str, iters)), "--passes_per_scale", str(passes),
         "--init", "random", "--model_file", "vgg19", "--allow_random_weights", "--precision", "highest",
         "--compute_dtype", "float32", "--seed", "0", "--gpu", "0", "--verbose",
     ]
 
 
-def run_vid_img(results: dict) -> dict[str, int]:
+def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,pwc", sizes=VID_SIZES,
+                iters=VID_ITERS, passes: int = VID_PASSES) -> dict[str, int]:
+    """``style.main --transfer_type vid_img`` on the 8-frame 1024x576 clip
+    (phase 5 with SPyNet + PWC, and the UnFlow + LiteFlowNet phase), its
+    artifacts, finite flows and losses, and both kernels' launches against
+    the schedule's formula.  The run's files stay in OUT/``key``."""
     import numpy as np
     import torch
     from PIL import Image
@@ -741,11 +822,11 @@ def run_vid_img(results: dict) -> dict[str, int]:
     from maua_style_tpu_torch.ops.resize import scale_shape
     from maua_style_tpu_torch.pipelines import flow_prepass
 
-    run_dir = os.path.join(OUT, "vid_img")
+    run_dir = os.path.join(OUT, key)
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     v_path, s_path = write_video(run_dir)
-    argv = vid_argv(v_path, s_path, run_dir)
+    argv = vid_argv(v_path, s_path, run_dir, flow_models, sizes, iters, passes)
 
     frames, prepass = [], []
     orig_frame, orig_pairs = StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs
@@ -779,14 +860,16 @@ def run_vid_img(results: dict) -> dict[str, int]:
 
     # K1: one style capture per scale (one style image, 5 layers) and 5
     # Grams per iteration of every frame of every pass
-    per_frame = [it // VID_PASSES for it in VID_ITERS]
-    want_gram = sum(5 + 5 * VID_FRAMES * VID_PASSES * it for it in per_frame)
-    # K2: 5 PWC levels per forward, forward and backward flow per chunk of
-    # 8 pairs; the pairs are the frames' successors plus the wrap-around
-    want_corr = 5 * 2 * -(-VID_FRAMES // flow_prepass.PAIR_CHUNK)
-    print(f"vid_img main path: {wall:.1f} s, launches {counts} (expected gram {want_gram}, correlation {want_corr})")
+    per_frame = [it // passes for it in iters]
+    want_gram = sum(5 + 5 * VID_FRAMES * passes * it for it in per_frame)
+    # K2: each net's launches per forward (PWC and LiteFlowNet 5 levels,
+    # UnFlow 1), forward and backward flow per chunk of 8 pairs; the pairs
+    # are the frames' successors plus the wrap-around
+    per_forward = sum(K2_PER_FORWARD[n] for n in flow_models.split(","))
+    want_corr = per_forward * 2 * -(-VID_FRAMES // flow_prepass.PAIR_CHUNK)
+    print(f"{key} path: {wall:.1f} s, launches {counts} (expected gram {want_gram}, correlation {want_corr})")
     if counts != {"gram": want_gram, "correlation": want_corr}:
-        fail(f"vid_img launches {counts} != gram {want_gram}, correlation {want_corr}")
+        fail(f"{key} launches {counts} != gram {want_gram}, correlation {want_corr}")
 
     work = os.path.join(run_dir, "vid_style")
     names = [f"{i + 1:05d}" for i in range(VID_FRAMES)]
@@ -810,12 +893,12 @@ def run_vid_img(results: dict) -> dict[str, int]:
             if png_hw(os.path.join(work, "flow", stem + ".png")) != VID_HW:
                 fail(f"{stem}.png: wrong shape")
     scale_rows = []
-    per_scale = VID_FRAMES * VID_PASSES
-    if len(frames) != per_scale * len(VID_SIZES) or not all(f["finite"] for f in frames):
-        fail(f"{len(frames)} frames optimised (expected {per_scale * len(VID_SIZES)}) or a loss log not finite")
-    for si, (size, it) in enumerate(zip(VID_SIZES, per_frame)):
+    per_scale = VID_FRAMES * passes
+    if len(frames) != per_scale * len(sizes) or not all(f["finite"] for f in frames):
+        fail(f"{len(frames)} frames optimised (expected {per_scale * len(sizes)}) or a loss log not finite")
+    for si, (size, it) in enumerate(zip(sizes, per_frame)):
         hw = tuple(scale_shape(VID_HW, size / max(VID_HW)))
-        for p in range(1, VID_PASSES + 1):
+        for p in range(1, passes + 1):
             for n in names:
                 if png_hw(os.path.join(work, str(size), f"{p}_{n}.png")) != hw:
                     fail(f"{size}/{p}_{n}.png: wrong shape")
@@ -827,7 +910,7 @@ def run_vid_img(results: dict) -> dict[str, int]:
                    "s_per_frame": secs / len(recs), "ms_per_iter": secs * 1e3 / (it * len(recs)),
                    "first_total_frame1": recs[0]["first_total"], "last_total_frame1": recs[0]["last_total"]}
             scale_rows.append(row)
-            print("vid_img", json.dumps(row))
+            print(key, json.dumps(row))
         mp4, npy = (os.path.join(work, f"vid_style_{size}.{ext}") for ext in ("mp4", "npy"))
         if not os.path.exists(mp4) and not (os.path.exists(npy) and np.load(npy).shape == (VID_FRAMES, *hw, 3)):
             fail(f"no muxed video for {size}")
@@ -837,8 +920,8 @@ def run_vid_img(results: dict) -> dict[str, int]:
     summary = {"wall_s": wall, "launches": counts, "prepass_wall_s": pre["wall_s"],
                "prepass_s_per_pair": pre["wall_s"] / pre["pairs"], "max_abs_flow": max_flow,
                "s_per_frame_all": sum(f["s"] for f in frames) / len(frames), "passes": scale_rows, "argv": argv}
-    print("vid_img summary", json.dumps({k: v for k, v in summary.items() if k not in ("passes", "argv")}))
-    results["vid_img"] = summary
+    print(f"{key} summary", json.dumps({k: v for k, v in summary.items() if k not in ("passes", "argv")}))
+    results[key] = summary
     return counts
 
 
@@ -1102,10 +1185,10 @@ def check_img_vid_against_cpu(results: dict) -> None:
     results["img_vid_vs_cpu"] = {"max_rel_loss": worst, "max_abs_pixel": pix}
 
 
-def check_flow_against_cpu(results: dict) -> None:
-    """SPyNet + PWC (the same seeded weights) on a 64x128 pair on the GPU,
-    through K2, and on the CPU, through the plain version the CPU tests
-    hold to the JAX package: max|Δ| / max|flow| <= 1e-3, TF32 off."""
+def check_flow_against_cpu(results: dict, flow_models: str = "spynet,pwc") -> None:
+    """A flow ensemble (the same seeded weights) on a 64x128 pair on the
+    GPU, through K2, and on the CPU, through the plain version the CPU
+    tests hold to the JAX package: max|Δ| / max|flow| <= 1e-3, TF32 off."""
     import argparse
 
     import numpy as np
@@ -1120,14 +1203,15 @@ def check_flow_against_cpu(results: dict) -> None:
     ims2 = np.roll(ims1, (2, 3), axis=(1, 2))
     outs = {}
     for dev in ("cuda", "cpu"):
-        ns = argparse.Namespace(flow_models="spynet,pwc", allow_random_weights=True, device=dev)
+        ns = argparse.Namespace(flow_models=flow_models, allow_random_weights=True, device=dev)
         outs[dev] = flow.get_flow_pair_model(ns).batched(ims1, ims2)
     rels = [float(np.abs(g - c).max() / np.abs(c).max()) for g, c in zip(outs["cuda"][:2], outs["cpu"][:2])]
     rel_maps = [float(np.abs(g - c).max()) for g, c in zip(outs["cuda"][2:], outs["cpu"][2:])]
-    print(f"flow GPU vs CPU: max|d|/max|flow| fwd {rels[0]:.3e} bwd {rels[1]:.3e}; reliability max|d| {rel_maps}")
+    print(f"flow {flow_models} GPU vs CPU: max|d|/max|flow| fwd {rels[0]:.3e} bwd {rels[1]:.3e}; "
+          f"reliability max|d| {rel_maps}")
     if not max(rels) <= 1e-3:
-        fail(f"flow GPU vs CPU: {rels} > 1e-3")
-    results["flow_vs_cpu"] = {"rel": rels, "reliability_max_abs": rel_maps}
+        fail(f"flow {flow_models} GPU vs CPU: {rels} > 1e-3")
+    results.setdefault("flow_vs_cpu", {})[flow_models] = {"rel": rels, "reliability_max_abs": rel_maps}
 
 
 def profile_vid_frame(results: dict) -> None:
@@ -1334,6 +1418,181 @@ def check_determinism(results: dict) -> None:
     results["determinism_1024"] = report
 
 
+NCA_STEPS, NCA_SAVE, NCA_FRAMES = 40, 5, 90
+
+
+def run_nca(results: dict) -> tuple[dict[str, int], dict[str, int]]:
+    """The neural-CA trainer at the JAX defaults (12 channels, hidden 96,
+    a pool of 1024 states of 128², batch 4, 32-96 CA steps, VGG-16 with
+    its five style layers, seeded random weights, f32) for NCA_STEPS steps,
+    a checkpoint every NCA_SAVE; then generation from the last checkpoint:
+    NCA_FRAMES frames of each of the three videos.  Checks finite losses,
+    a learned w2, the artifacts, K1's input shapes against phase 2's and
+    its launches (5 for the style target + 5 a step); prints ms per train
+    step, peak memory and seconds per generated frame."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch.models import nca
+    from maua_style_tpu_torch.pipelines import nca_gen, nca_train
+
+    run_dir = os.path.join(OUT, "nca")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    _, s_path = write_inputs(run_dir)  # the 768² style; its 128² thumbnail is the target
+    step_ms, rollouts, pools, seen = [], [], [], set()
+
+    def timed_step(fn, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def counted_rollout(fn, params, x, draws, n_steps, *a, **kw):
+        rollouts.append(n_steps)
+        return fn(params, x, draws, n_steps, *a, **kw)
+
+    def recorded_pool(fn, *a, **kw):
+        pool = fn(*a, **kw)
+        pools.append({"shape": list(pool.shape), "bytes": pool.numel() * pool.element_size(), "device": str(pool.device)})
+        return pool
+
+    gram_fn = nca_train._GramFn
+
+    class RecordingGram:
+        @staticmethod
+        def apply(f):
+            seen.add(tuple(f.shape))
+            return gram_fn.apply(f)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nca_train._GramFn = RecordingGram
+    try:
+        with patched((nca_train, "train_step", timed_step), (nca, "rollout", counted_rollout),
+                     (nca, "seed_state", recorded_pool)):
+            reset_counts()
+            t0 = time.perf_counter()
+            params, log = nca_train.train(s_path, run_dir, n_steps=NCA_STEPS, save_every=NCA_SAVE, log_every=10,
+                                          allow_random_weights=True, seed=0, device="cuda:0")
+            train_wall = time.perf_counter() - t0
+            train_counts = read_counts()
+    finally:
+        nca_train._GramFn = gram_fn
+    peak = torch.cuda.max_memory_allocated() - base
+    want = {"gram": 5 + 5 * NCA_STEPS, "correlation": 0}
+    print(f"nca_train: {train_wall:.1f} s, launches {train_counts} (expected {want}), pool {pools}")
+    if train_counts != want:
+        fail(f"nca_train launches {train_counts} != {want}")
+    if seen != set(nca_gram_shapes()):
+        fail(f"nca_train's Gram inputs {sorted(seen)} != phase 2's {sorted(nca_gram_shapes())}")
+    if len(log) != NCA_STEPS or not np.isfinite(log).all():
+        fail(f"nca_train: {len(log)} losses, finite {bool(np.isfinite(log).all())}")
+    if not bool(torch.any(params["w2"] != 0)) or params["w2"].device.type != "cuda":
+        fail("nca_train: w2 still zero or not on the card")
+    if pools != [{"shape": [1024, 12, NCA_GRID, NCA_GRID], "bytes": 1024 * 12 * NCA_GRID**2 * 4, "device": "cuda:0"}]:
+        fail(f"nca_train: pool {pools}")
+    for n in range(NCA_SAVE, NCA_STEPS + 1, NCA_SAVE):
+        for ext in ("npz", "png"):
+            if not os.path.exists(os.path.join(run_dir, f"style_{n}.{ext}")):
+                fail(f"nca_train: missing style_{n}.{ext}")
+    if len(rollouts) != NCA_STEPS or not all(32 <= n < 96 for n in rollouts):
+        fail(f"nca_train: rollout lengths {rollouts}")
+    train = {"wall_s": train_wall, "launches": train_counts, "steps": NCA_STEPS,
+             "ms_per_step_median": statistics.median(step_ms), "ms_per_step_first": step_ms[0],
+             "ms_per_ca_step": sum(step_ms[1:]) / sum(rollouts[1:]), "rollout_mean": statistics.mean(rollouts),
+             "peak_bytes": peak, "pool": pools[0], "first_loss": log[0], "last_loss": log[-1],
+             "loss_min": min(log), "loss_max": max(log)}
+    print("nca_train", json.dumps(train))
+
+    gen_s = {}
+    ckpt = os.path.join(run_dir, f"style_{NCA_STEPS}.npz")
+    with patched(*((nca_gen, f, seconds_into(gen_s, f)) for f in ("evolution_video", "checkpoint_grid_video",
+                                                                    "text_video"))):
+        reset_counts()
+        t0 = time.perf_counter()
+        nca_gen.main([s_path, run_dir, "--num_frames", str(NCA_FRAMES), "--checkpoint", ckpt, "--text", "NCA"])
+        gen_wall = time.perf_counter() - t0
+        gen_counts = read_counts()
+    tag = str(NCA_STEPS)
+    for stem, hw in ((f"style_{tag}", (512, 512)), ("style_checkgrid", (1024, 2 * (4 * 128 + 2))),
+                     (f"style-{tag}-wav", None)):
+        art = os.path.join(run_dir, stem)
+        arr = np.load(art + ".npy", mmap_mode="r") if os.path.exists(art + ".npy") else None
+        ok = os.path.exists(art + ".mp4") or (arr is not None and arr.shape[0] == NCA_FRAMES
+                                              and (hw is None or tuple(arr.shape[1:3]) == hw))
+        if not ok:
+            fail(f"nca_gen: no {stem}.mp4 and no {NCA_FRAMES}-frame .npy ({None if arr is None else arr.shape})")
+    if gen_counts != {"gram": 0, "correlation": 0} or len(gen_s) != 3:
+        fail(f"nca_gen: launches {gen_counts}, videos timed {sorted(gen_s)}")
+    gen = {"wall_s": gen_wall, "launches": gen_counts, "frames": NCA_FRAMES,
+           "s_per_frame": {k: v / NCA_FRAMES for k, v in gen_s.items()}}
+    print("nca_gen", json.dumps(gen))
+    results["nca"] = {"train": train, "gen": gen}
+    shutil.rmtree(run_dir)  # hundreds of MB of frames, checked above
+    return train_counts, gen_counts
+
+
+class FixedDraws:
+    """One training step's draws, made once from a CPU generator and handed
+    out on ``device``: two runs on two devices see the same numbers."""
+
+    def __init__(self, seed: int, pool_size: int, batch_size: int, n_steps: int, hw: tuple[int, int], device):
+        import torch
+
+        g = torch.Generator().manual_seed(seed)
+        self.idx = torch.randperm(pool_size, generator=g)[:batch_size]
+        self.n = n_steps
+        self.masks = [torch.rand((batch_size, 1, *hw), generator=g) for _ in range(n_steps)]
+        self.device = device
+
+    def batch(self, pool_size, batch_size):
+        return self.idx.to(self.device)
+
+    def steps(self, low, high):
+        return self.n
+
+    def uniform(self, shape):
+        return self.masks.pop(0).to(self.device)
+
+
+def check_nca_against_cpu(results: dict) -> None:
+    """One NCA training step at the defaults' widths (128², batch 4, VGG-16's
+    five layers, 32 CA steps, a small random w2, a pool of 8 random states)
+    on the GPU and on the CPU, from the same draws, TF32 off: losses within
+    rtol 1e-3."""
+    import torch
+
+    from maua_style_tpu_torch.models import nca
+    from maua_style_tpu_torch.pipelines import nca_train
+
+    g = torch.Generator().manual_seed(5)
+    style = torch.rand((1, 3, NCA_GRID, NCA_GRID), generator=g)
+    pool0 = torch.rand((8, 12, NCA_GRID, NCA_GRID), generator=g) * 0.1
+    w2 = torch.randn((12, 96, 1, 1), generator=g) * 0.01
+    losses, updated = {}, {}
+    for dev in ("cuda", "cpu"):
+        calc = nca_train._build_style_fn("vgg16", True, dev)
+        with torch.no_grad():
+            target = [t[0] for t in calc(style.to(dev))]
+        params = {**nca.init_ca_params(seed=0, device=dev), "w2": w2.to(dev)}
+        adam = nca_train.Adam(1.0)
+        opt_state = {k: adam.init(v) for k, v in params.items()}
+        draws = FixedDraws(6, 8, NCA_BATCH, 32, (NCA_GRID, NCA_GRID), dev)
+        p, loss, _ = nca_train.train_step(params, adam, opt_state, pool0.to(dev), draws, 1, calc, target,
+                                          batch_size=NCA_BATCH, min_rollout=32, max_rollout=96)
+        losses[dev], updated[dev] = float(loss), {k: v.cpu() for k, v in p.items()}
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    dw = {k: float((updated["cuda"][k] - updated["cpu"][k]).abs().max()) for k in updated["cpu"]}
+    print(f"nca train step GPU vs CPU: losses {losses}, rel {rel:.3e}; max |d param| {dw}")
+    if not rel <= 1e-3:
+        fail(f"nca train step GPU vs CPU: loss rel {rel:.3e} > 1e-3")
+    results["nca_vs_cpu"] = {"losses": losses, "rel": rel, "max_abs_param": dw}
+
+
 def main() -> int:
     import torch
 
@@ -1367,7 +1626,7 @@ def main() -> int:
         gram, corr = run_phases(results)
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
-        for d in ("vid_img", "img_vid", "flags"):
+        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -1383,6 +1642,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     """Phases 2 to 7; returns the kernels line's K1 and K2 entries."""
     gram = check_gram(results)
     gram["img_vid_shapes"] = check_video_gram(results)
+    gram["nca_shapes"] = check_nca_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -1391,17 +1651,24 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     check_flow_against_cpu(results)
     profile_vid_frame(results)
     shutil.rmtree(os.path.join(OUT, "vid_img"))  # ~200 MB of frames and flow, checked above
+    vid_d = run_vid_img(results, "vid_img_unflow_liteflownet", VD_FLOW, VD_SIZES, VD_ITERS, VD_PASSES)
+    shutil.rmtree(os.path.join(OUT, "vid_img_unflow_liteflownet"))
+    for nets in VD_FLOW.split(","):
+        check_flow_against_cpu(results, nets)
     ivid = run_img_vid(results)
     profile_img_vid_window(results)
     check_img_vid_against_cpu(results)
+    nca_train_counts, nca_gen_counts = run_nca(results)
+    check_nca_against_cpu(results)
     drive_flags(results)
     check_determinism(results)
     # launches: each path's own count, read right after it ran from zero
+    paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
+             "nca_train": nca_train_counts, "nca_gen": nca_gen_counts}
     gram["launches"] = img["gram"]
-    gram["launches_by_path"] = {"img_img": img["gram"], "vid_img": vid["gram"], "img_vid": ivid["gram"]}
+    gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]
-    corr["launches_by_path"] = {"img_img": img["correlation"], "vid_img": vid["correlation"],
-                                "img_vid": ivid["correlation"]}
+    corr["launches_by_path"] = {k: v["correlation"] for k, v in paths.items()}
     results["kernels"] = [gram, corr]
     return gram, corr
 

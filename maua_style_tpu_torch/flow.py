@@ -41,8 +41,10 @@ def _get_net(name: str, device, allow_random: bool | None = None) -> torch.nn.Mo
         from .models.flownets import SPyNet as Net
     elif name == "pwc":
         from .models.flownets import PWCNet as Net
-    elif name in ("unflow", "liteflownet"):
-        raise NotImplementedError(f"flow model {name!r} is not ported yet (ROADMAP Queue 1, Slice D)")
+    elif name == "unflow":
+        from .models.flownets import UnFlow as Net
+    elif name == "liteflownet":
+        from .models.flownets import LiteFlowNet as Net
     else:
         raise ValueError(f"unknown flow model {name!r}")
 

@@ -1,6 +1,7 @@
 """Flow-net weights carried across (JAX counterparts:
 maua_style_tpu/models/flownets/convert.py, ``convert_pwc_torch`` at
-pwc.py:134 and ``convert_spynet_torch`` at spynet.py:84).
+pwc.py:134, ``convert_spynet_torch`` at spynet.py:84, and
+``assign_by_shape`` for UnFlow and LiteFlowNet).
 
 - ``flow_params_from_jax(name, params)``: the JAX nets' ``{layer: {"w", "b"}}``
   dicts (numpy) -> the port module's state dict.  Convs are HWIO -> OIHW;
@@ -11,7 +12,11 @@ pwc.py:134 and ``convert_spynet_torch`` at spynet.py:84).
   (``{layer}/w``, ``{layer}/b``), so one file feeds both packages.
 - ``flow_params_from_torch(name, state_dict)``: a sniklaus
   pytorch-{spynet,pwc} state dict, renamed as the JAX converters rename it,
-  with every weight's shape checked against the layout.
+  with every weight's shape checked against the layout; for UnFlow and
+  LiteFlowNet, ``assign_by_shape``: each layout entry takes the first
+  unused 4-D weight of its shape in the state dict's insertion order
+  (kernel-4 entries, the deconvs, read as ``(in, out, k, k)``), and a
+  layer left without one fails with the list of unmatched layers.
 """
 
 from __future__ import annotations
@@ -27,8 +32,12 @@ def _layout(name: str):
         from .spynet import layout
     elif name == "pwc":
         from .pwc import layout
+    elif name == "unflow":
+        from .unflow import layout
+    elif name == "liteflownet":
+        from .liteflownet import layout
     else:
-        raise ValueError(f"unknown flow net {name!r} (ported: spynet, pwc)")
+        raise ValueError(f"unknown flow net {name!r}")
     return layout()
 
 
@@ -88,9 +97,46 @@ def _pwc_names(state_dict) -> dict[str, str]:
     return out
 
 
+def _ordered_convs(state_dict) -> list[tuple[str, torch.Tensor]]:
+    """(key, weight) for every 4-D weight, in insertion order."""
+    out = []
+    for key, w in state_dict.items():
+        if key.endswith("weight") and torch.as_tensor(w).dim() == 4:
+            out.append((key, torch.as_tensor(w).detach().float().cpu()))
+    return out
+
+
+def assign_by_shape(layout, state_dict) -> dict[str, torch.Tensor]:
+    """Map an insertion-ordered torch state dict onto a ``(name, cin, cout,
+    k)`` layout by weight shape (see the module docstring)."""
+    entries = _ordered_convs(state_dict)
+    used = [False] * len(entries)
+    sd, missing = {}, []
+    for layer, cin, cout, k in layout:
+        want = (cin, cout, k, k) if k == 4 else (cout, cin, k, k)
+        for i, (key, w) in enumerate(entries):
+            if used[i] or tuple(w.shape) != want:
+                continue
+            used[i] = True
+            bias_key = key[: -len("weight")] + "bias"
+            b = state_dict[bias_key] if bias_key in state_dict else torch.zeros(cout)
+            sd[_key(layer) + ".weight"] = w.contiguous()
+            sd[_key(layer) + ".bias"] = torch.as_tensor(b).detach().float().cpu()
+            break
+        else:
+            missing.append((layer, want))
+    if missing:
+        leftover = [(key, tuple(w.shape)) for (key, w), u in zip(entries, used) if not u]
+        raise ValueError(f"checkpoint does not match the expected architecture; unmatched layers: {missing}; "
+                         f"unconsumed checkpoint tensors: {leftover[:10]}")
+    return sd
+
+
 def flow_params_from_torch(name: str, state_dict) -> dict[str, torch.Tensor]:
     if hasattr(state_dict, "items") and "state_dict" in state_dict:
         state_dict = state_dict["state_dict"]
+    if name in ("unflow", "liteflownet"):
+        return assign_by_shape(_layout(name), state_dict)
     names = _spynet_names(state_dict) if name == "spynet" else _pwc_names(state_dict)
     sd = {}
     missing = []
@@ -112,4 +158,4 @@ def flow_params_from_torch(name: str, state_dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-__all__ = ["flow_params_from_jax", "flow_params_from_torch", "load_npz"]
+__all__ = ["flow_params_from_jax", "flow_params_from_torch", "assign_by_shape", "load_npz"]

@@ -102,16 +102,15 @@ def test_bf16_compute_keeps_f32_losses():
 
 
 @pytest.mark.parametrize("transfer_type", ["vid_img", "img_vid"])
-def test_unported_transfer_types_raise(transfer_type, monkeypatch):
-    """All three transfer types are ported; what each leaves to Slice D, the
-    LiteFlowNet and UnFlow flow nets, raises.  img_vid without --gpu c and
-    without CUDA raises too, and an unknown transfer type raises in the
-    engine."""
+def test_bad_arguments_raise(transfer_type, monkeypatch):
+    """All three transfer types and all four flow nets are ported; an
+    unknown --flow_models name raises.  img_vid without --gpu c and without
+    CUDA raises too, and an unknown transfer type raises in the engine."""
     from maua_style_tpu_torch import config, flow
 
-    net = "unflow" if transfer_type == "vid_img" else "liteflownet"
+    net = "flownet2" if transfer_type == "vid_img" else "raft"
     args = config.get_args(["--gpu", "c", "--transfer_type", transfer_type, "--flow_models", f"spynet,{net}"])
-    with pytest.raises(NotImplementedError, match="Slice D"):
+    with pytest.raises(ValueError, match=f"unknown flow model '{net}'"):
         flow.get_flow_model(args)
     if transfer_type == "img_vid":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
