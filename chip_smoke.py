@@ -77,6 +77,17 @@ Phases, each of which must pass (nothing is caught and passed over):
    last checkpoint, 90 frames of each video (evolution, a 4-checkpoint
    grid, ``--text``), seconds per frame; and one training step on the GPU
    and on the CPU from the same draws (losses within rtol 1e-3).
+6c. CLIP-guided VQGAN: ``pipelines.clip_vqgan.main`` at the JAX defaults
+   (ViT-B/32, imagenet_16384, 64 cutouts, Adam 0.05; seeded random
+   weights, f32, TF32 off) on the main path's images fitted to 256² and a
+   style text, cut to 100 iterations with a save every 50: the artifact,
+   the log lines, a finite loss log, no K1/K2 launch; ms per iteration,
+   the CLI's wall, the targets' seconds and the peak memory; a
+   torch.profiler window of 5 iterations and ms per iteration with
+   ``cudnn.benchmark`` off and on, in turns (report only); then the models
+   on the GPU against the CPU (CLIP embeddings and a decode within 1e-4,
+   one iteration's loss terms within rtol 1e-3 with z fixed to codes, the
+   share of agreeing quantize indices printed).
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -1593,6 +1604,245 @@ def check_nca_against_cpu(results: dict) -> None:
     results["nca_vs_cpu"] = {"losses": losses, "rel": rel, "max_abs_param": dw}
 
 
+CV_ITERS, CV_PROFILE_ITERS = 100, 5  # the CLI saves every 50
+CV_TEXT = "an oil painting of a lighthouse at dusk"
+
+
+class _Tee:
+    """A stdout that also keeps what it is sent."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_clip_vqgan(results: dict):
+    """CLIP-guided VQGAN synthesis through ``pipelines.clip_vqgan.main`` at
+    the JAX defaults: ViT-B/32 (width 768, 12 + 12 layers, 224 input),
+    imagenet_16384 (ch 128, ch_mult 1,1,2,2,4, 16384 codes of 256), the
+    main path's content and style images fitted to 256² and a style text,
+    64 cutouts, Adam 0.05, seeded random weights, f32 with TF32 off,
+    iterations cut from 500 to CV_ITERS with a save every 50.  Checks the
+    artifact, the log lines, a finite (CV_ITERS, 4) loss log and no K1/K2
+    launch; prints ms per iteration (CUDA events at each iteration's
+    start, the median after the first), the CLI's wall seconds, the engine's
+    set-up, the seconds from optimize's start to its first iteration (the
+    targets' embeddings and z's encoding) and the peak memory.  Returns
+    (launch counts, the run's engine)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_style_tpu_torch.pipelines import clip_vqgan as cv
+
+    run_dir = os.path.join(OUT, "clip_vqgan")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)  # fitted to 256² by the CLI (--image_size 256)
+    events, engines, spans = [], [], {}
+
+    def timed_step(fn, *a, **kw):
+        if not events:  # the first iteration ends optimize's prologue
+            torch.cuda.synchronize()
+            spans["prologue_s"] = time.perf_counter() - spans["t0"]
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return fn(*a, **kw)
+
+    def recorded_optimize(fn, self, *a, **kw):
+        engines.append(self)
+        torch.cuda.synchronize()
+        spans["t0"] = time.perf_counter()
+        return fn(self, *a, **kw)
+
+    argv = ["--content", c_path, "--style", s_path, "--style_text", CV_TEXT, "--iterations", str(CV_ITERS),
+            "--out_dir", run_dir, "--seed", "0", "--allow_random_weights"]
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with patched((cv.ClipVQGANEngine, "step", timed_step), (cv.ClipVQGANEngine, "optimize", recorded_optimize),
+                 (cv.ClipVQGANEngine, "__init__", seconds_into(spans, "engine_init_s"))), \
+            contextlib.redirect_stdout(tee):
+        reset_counts()
+        t0 = time.perf_counter()
+        cv.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    engine = engines[0]
+    log = engine.last_loss_log
+    name = "-".join(["content", "style", *CV_TEXT.split(), "imagenet_16384"]).lower() + ".jpg"
+    printed = [ln for ln in "".join(tee.parts).splitlines() if ln.startswith(("i: ", "saved "))]
+    with Image.open(os.path.join(run_dir, name)) as img:
+        size = img.size
+    print(f"clip_vqgan: {wall:.1f} s, launches {counts}, log {log.shape}, printed {printed}")
+    if counts != {"gram": 0, "correlation": 0}:
+        fail(f"clip_vqgan launched K1/K2: {counts}")
+    if log.shape != (CV_ITERS, 4) or not np.isfinite(log).all() or log[:, 2].any():
+        fail(f"clip_vqgan: loss log {log.shape}, finite {bool(np.isfinite(log).all())}, from term {log[:, 2].any()}")
+    if size != (256, 256) or len(events) != CV_ITERS or engine.device.type != "cuda":
+        fail(f"clip_vqgan: image {size}, {len(events)} iterations timed, device {engine.device}")
+    if [ln.split(",")[0] for ln in printed] != [f"i: {CV_ITERS}", f"i: {CV_ITERS}", f"saved {run_dir}/{name}"]:
+        fail(f"clip_vqgan: printed lines {printed}")
+    gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    summary = {"wall_s": wall, "launches": counts, "iterations": CV_ITERS, "ms_per_iter_median": statistics.median(gaps[1:]),
+               "ms_first_iter": gaps[0], "ms_per_iter_max": max(gaps[1:]),
+               "engine_init_s": spans["engine_init_s"], "prologue_s": spans["prologue_s"], "peak_bytes": peak,
+               "first_terms": log[0].tolist(), "last_terms": log[-1].tolist(), "what": "ms between iteration starts "
+               "(CUDA events), median of iterations 2..; prologue = content/style/text embeddings + z encode"}
+    print("clip_vqgan", json.dumps(summary))
+    results["clip_vqgan"] = summary
+    shutil.rmtree(run_dir)
+    return counts, engine
+
+
+def profile_clip_vqgan(results: dict, engine) -> None:
+    """torch.profiler over CV_PROFILE_ITERS iterations of the main path's
+    engine (warm), from a 256² image's z with a style image and the style
+    text, after two warm-up iterations: device busy share, top kernels and
+    operators, launches per iteration, and the device time under the
+    forward's layers (VQGAN synth, cutouts, CLIP image tower; the
+    remainder of a step is backward and Adam); then ms per iteration
+    (median of 20 after 3 warm-up steps) with ``torch.backends.cudnn.benchmark``
+    off, on, on, off.  Report only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from maua_style_tpu_torch.engine.lbfgs import Adam
+    from maua_style_tpu_torch.pipelines import clip_vqgan as cv
+
+    def labelled(label):
+        def wrapper(fn, *a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+
+        return wrapper
+
+    g = torch.Generator().manual_seed(3)
+    img, style = (torch.rand((1, 3, 256, 256), generator=g).cuda() for _ in range(2))
+    with torch.no_grad():
+        targets = (engine.embed_cutouts(img), None, engine.embed_text(CV_TEXT), [engine.embed_cutouts(style)])
+    z = engine.encode_z(img)
+    adam = Adam(engine.learning_rate)
+    state = adam.init(z)
+    for _ in range(2):
+        z, state, _ = engine.step(z, adam, state, None, targets, (1.0, 1.0, 1.0))
+    torch.cuda.synchronize()
+    with patched((engine, "loss_terms", labelled("clip_vqgan.forward")), (engine, "synth", labelled("clip_vqgan.synth")),
+                 (cv, "make_cutouts", labelled("clip_vqgan.cutouts")),
+                 (engine.clip, "encode_image", labelled("clip_vqgan.clip_image"))), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(CV_PROFILE_ITERS):
+            z, state, terms = engine.step(z, adam, state, None, targets, (1.0, 1.0, 1.0))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    avgs = prof.key_averages()
+    # device time of the kernels each labelled range's operators launched (the CPU-side events; the backward's
+    # run on autograd's device thread, outside the ranges: they are the step's remainder)
+    layers = {e.key: e.device_time_total / 1e3 / CV_PROFILE_ITERS for e in avgs
+              if e.key.startswith("clip_vqgan.") and e.device_type != cuda}
+    bench_ms, saved = {}, torch.backends.cudnn.benchmark
+    try:
+        for bench in (False, True, True, False):  # in turns: cuDNN's heuristics against its autotuner
+            torch.backends.cudnn.benchmark = bench
+            for _ in range(3):
+                z, state, _ = engine.step(z, adam, state, None, targets, (1.0, 1.0, 1.0))
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(21)]
+            for ev in events[:-1]:
+                ev.record()
+                z, state, _ = engine.step(z, adam, state, None, targets, (1.0, 1.0, 1.0))
+            events[-1].record()
+            torch.cuda.synchronize()
+            gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+            bench_ms.setdefault(f"benchmark={bench}", []).append(statistics.median(gaps))
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    summary = {"iters": CV_PROFILE_ITERS, **device_profile(prof, wall_ms),
+               "launches_per_iter": sum(e.count for e in avgs if e.device_type == cuda) / CV_PROFILE_ITERS,
+               "layer_device_ms_per_iter": layers, "cudnn_benchmark_ms_per_iter": bench_ms,
+               "what": "5 iterations at 256² (ViT-B/32, imagenet_16384, 64 cutouts), f32, TF32 off"}
+    print("profile clip_vqgan", json.dumps(summary))
+    results["profile_clip_vqgan"] = summary
+
+
+class _ListDraws:
+    """Cutout draws handed out in order from a list: two engines on two
+    devices see the same phases and offsets."""
+
+    def __init__(self, items):
+        self.items = list(items)
+
+    def cutouts(self, cutn, phases):
+        return self.items.pop(0)
+
+
+def check_clip_vqgan_against_cpu(results: dict) -> None:
+    """The full-width models on the GPU and on the CPU from the same seeded
+    weights and cutout draws, TF32 off: CLIP image embeddings of 8 images
+    and text embeddings of 3 texts, and a decode from fixed indices, each
+    within max|Δ| / max|·| <= 1e-4; one iteration's loss terms within rtol
+    1e-3 with z fixed to codes (the CPU's indices of an encoded 256²
+    image, so both devices quantize alike); and the share of that encode's
+    quantize indices on which the devices agree (printed: with 16384
+    random codes, near-ties can pick another code)."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch.engine.lbfgs import Adam
+    from maua_style_tpu_torch.models.clip import tokenize
+    from maua_style_tpu_torch.pipelines import clip_vqgan as cv
+
+    os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"  # seeded random weights, as the main path's --allow_random_weights
+    g = torch.Generator().manual_seed(7)
+    img, style = (torch.rand((1, 3, 256, 256), generator=g) for _ in range(2))
+    batch = (torch.rand((8, 3, 224, 224), generator=g) - 0.45) / 0.27
+    toks = tokenize(["a lighthouse", CV_TEXT, "noise, static and snow"])
+    codes = torch.randint(0, 16384, (1, 16, 16), generator=g)
+    src = cv.CutoutDraws(11)
+    draws = [src.cutouts(64, 4) for _ in range(3)]  # content, style, one iteration
+    engines = {dev: cv.ClipVQGANEngine(seed=0, device=dev, draws=_ListDraws(draws)) for dev in ("cuda", "cpu")}
+    res = {}
+    for dev, eng in engines.items():
+        with torch.no_grad():
+            res[dev] = {"image": eng.clip.encode_image(batch.to(dev)).cpu(), "text": eng.clip.encode_text(toks).cpu(),
+                        "decode": eng.vqgan.decode(eng.vqgan.lookup(codes.to(dev))).cpu(),
+                        "indices": eng.vqgan.code_indices(eng.vqgan.encode(img.to(dev) * 2 - 1)).cpu()}
+    for dev, eng in engines.items():
+        z = eng.vqgan.lookup(res["cpu"]["indices"].to(dev))
+        with torch.no_grad():
+            targets = (eng.embed_cutouts(img.to(dev)), None, eng.embed_text(CV_TEXT), [eng.embed_cutouts(style.to(dev))])
+        adam = Adam(eng.learning_rate)
+        _, _, terms = eng.step(z, adam, adam.init(z), None, targets, (1.0, 1.0, 1.0))
+        res[dev]["terms"] = terms.cpu().numpy()
+    del engines
+    torch.cuda.empty_cache()
+
+    def rel(key):
+        a, b = res["cuda"][key].double(), res["cpu"][key].double()
+        return float((a - b).abs().max() / b.abs().max())
+
+    rels = {k: rel(k) for k in ("image", "text", "decode")}
+    tg, tc = res["cuda"]["terms"], res["cpu"]["terms"]
+    terms_rel = float(np.max(np.abs(tg - tc) / np.where(tc == 0, 1.0, np.abs(tc))))  # the from term is 0 on both
+    agree = float((res["cuda"]["indices"] == res["cpu"]["indices"]).double().mean())
+    print(f"clip_vqgan GPU vs CPU: {rels}, terms cuda {tg.tolist()} cpu {tc.tolist()} (rel {terms_rel:.3e}), "
+          f"quantize indices agree on {agree:.4f} of {res['cpu']['indices'].numel()}")
+    results["clip_vqgan_vs_cpu"] = {**rels, "terms_rel": terms_rel, "terms_cuda": tg.tolist(), "terms_cpu": tc.tolist(),
+                                    "indices_agree": agree}
+    if not (max(rels.values()) <= 1e-4 and terms_rel <= 1e-3):
+        fail(f"clip_vqgan GPU vs CPU: {rels}, terms rel {terms_rel:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -1626,7 +1876,7 @@ def main() -> int:
         gram, corr = run_phases(results)
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
-        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca"):
+        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca", "clip_vqgan"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -1660,11 +1910,15 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     check_img_vid_against_cpu(results)
     nca_train_counts, nca_gen_counts = run_nca(results)
     check_nca_against_cpu(results)
+    cv_counts, cv_engine = run_clip_vqgan(results)
+    profile_clip_vqgan(results, cv_engine)
+    del cv_engine
+    check_clip_vqgan_against_cpu(results)
     drive_flags(results)
     check_determinism(results)
     # launches: each path's own count, read right after it ran from zero
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
-             "nca_train": nca_train_counts, "nca_gen": nca_gen_counts}
+             "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]
