@@ -22,7 +22,8 @@ Phases, each of which must pass (nothing is caught and passed over):
    the largest view and the backward at C' = 9216 and at B = 18; and at
    the NCA trainer's ten inputs, VGG-16's five style layers of a batch of
    4 CA states of 128² and of the 128² style target, with the backward at
-   (4, 64, 16384) and (4, 512, 64).
+   (4, 64, 16384) and (4, 512, 64); and at the similarity phase's ten,
+   VGG-19's five style layers at 256² and 512².
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -88,6 +89,23 @@ Phases, each of which must pass (nothing is caught and passed over):
    on the GPU against the CPU (CLIP embeddings and a decode within 1e-4,
    one iteration's loss terms within rtol 1e-3 with z fixed to codes, the
    share of agreeing quantize indices printed).
+6d. clip_vqgan with ``--clip_backbone RN50`` (widths 64..2048, 3/4/6/3
+   bottlenecks, 224 input), the other settings 6c's, cut to 50 iterations:
+   the same checks and numbers, a profile with the RN tower's forward and
+   backward ms; then RN50, RN101 and RN50x4 image and text embeddings on
+   the GPU against the CPU (1e-4), each tower's forward GFLOP and layer
+   outputs from its shapes, and one RN50 iteration's loss terms (rtol
+   1e-3, z fixed to codes as in 6c).
+6e. clip_video_style: ``pipelines.clip_video_style.main`` with ViT-B/32
+   and SPyNet + PWC on a 6-frame 1024x576 clip (phase 5's pattern), 256,
+   2 passes of 10 iterations a frame, ``--init prev_warp``: the frames,
+   .flo files and pass artifacts, K2's launches against the pre-pass's
+   formula with each input among phase 3's, K1 0; s per frame, wall s.
+6f. similarity: ``pipelines.similarity.main`` on 3 synthetic 512² images,
+   ``--image_sizes 256,512 --num_iters 20,10 --grids``: 9 img_img jobs,
+   the caches, grids and artifacts, K1's launches against img_img's
+   formula summed over the jobs with each input among phase 2's (which
+   holds K1 at its ten shapes), K2 0; wall s per job.
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -777,9 +795,9 @@ VID_FRAMES, VID_HW = 8, (576, 1024)
 VID_SIZES, VID_ITERS, VID_PASSES = (512, 1024), (80, 40), 4
 
 
-def write_video(d: str) -> tuple[str, str]:
-    """An 8-frame 1024x576 video whose pattern moves (3, 2) px per frame,
-    and a 768² style image."""
+def write_video(d: str, n_frames: int = VID_FRAMES) -> tuple[str, str]:
+    """A 1024x576 video of ``n_frames`` whose pattern moves (3, 2) px per
+    frame, and a 768² style image."""
     import numpy as np
     from PIL import Image
 
@@ -790,7 +808,7 @@ def write_video(d: str) -> tuple[str, str]:
         (np.sin((xx + yy) / 57.0) * 0.5 + 0.5) * 255,
         (((xx - 500) ** 2 + (yy - 300) ** 2) < 180 ** 2) * 180 + 40,
     ], -1)
-    frames = np.stack([canvas[2 * t : 2 * t + h, 3 * t : 3 * t + w] for t in range(VID_FRAMES)]).astype(np.uint8)
+    frames = np.stack([canvas[2 * t : 2 * t + h, 3 * t : 3 * t + w] for t in range(n_frames)]).astype(np.uint8)
     v_path = os.path.join(d, "vid.npy")
     np.save(v_path, frames)
     sy, sx = np.mgrid[0:768, 0:768].astype(np.float32)
@@ -1622,15 +1640,15 @@ class _Tee:
         self.out.flush()
 
 
-def run_clip_vqgan(results: dict):
+def run_clip_vqgan(results: dict, key: str = "clip_vqgan", backbone: str = "ViT-B/32", iters: int = CV_ITERS):
     """CLIP-guided VQGAN synthesis through ``pipelines.clip_vqgan.main`` at
-    the JAX defaults: ViT-B/32 (width 768, 12 + 12 layers, 224 input),
-    imagenet_16384 (ch 128, ch_mult 1,1,2,2,4, 16384 codes of 256), the
-    main path's content and style images fitted to 256² and a style text,
-    64 cutouts, Adam 0.05, seeded random weights, f32 with TF32 off,
-    iterations cut from 500 to CV_ITERS with a save every 50.  Checks the
-    artifact, the log lines, a finite (CV_ITERS, 4) loss log and no K1/K2
-    launch; prints ms per iteration (CUDA events at each iteration's
+    the JAX defaults: ViT-B/32 (width 768, 12 + 12 layers, 224 input; or
+    ``backbone``), imagenet_16384 (ch 128, ch_mult 1,1,2,2,4, 16384 codes
+    of 256), the main path's content and style images fitted to 256² and a
+    style text, 64 cutouts, Adam 0.05, seeded random weights, f32 with
+    TF32 off, iterations cut from 500 to ``iters`` with a save every 50.
+    Checks the artifact, the log lines, a finite (iters, 4) loss log and no
+    K1/K2 launch; prints ms per iteration (CUDA events at each iteration's
     start, the median after the first), the CLI's wall seconds, the engine's
     set-up, the seconds from optimize's start to its first iteration (the
     targets' embeddings and z's encoding) and the peak memory.  Returns
@@ -1641,7 +1659,7 @@ def run_clip_vqgan(results: dict):
 
     from maua_style_tpu_torch.pipelines import clip_vqgan as cv
 
-    run_dir = os.path.join(OUT, "clip_vqgan")
+    run_dir = os.path.join(OUT, key)
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     c_path, s_path = write_inputs(run_dir)  # fitted to 256² by the CLI (--image_size 256)
@@ -1662,8 +1680,8 @@ def run_clip_vqgan(results: dict):
         spans["t0"] = time.perf_counter()
         return fn(self, *a, **kw)
 
-    argv = ["--content", c_path, "--style", s_path, "--style_text", CV_TEXT, "--iterations", str(CV_ITERS),
-            "--out_dir", run_dir, "--seed", "0", "--allow_random_weights"]
+    argv = ["--content", c_path, "--style", s_path, "--style_text", CV_TEXT, "--iterations", str(iters),
+            "--clip_backbone", backbone, "--out_dir", run_dir, "--seed", "0", "--allow_random_weights"]
     tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1683,36 +1701,41 @@ def run_clip_vqgan(results: dict):
     printed = [ln for ln in "".join(tee.parts).splitlines() if ln.startswith(("i: ", "saved "))]
     with Image.open(os.path.join(run_dir, name)) as img:
         size = img.size
-    print(f"clip_vqgan: {wall:.1f} s, launches {counts}, log {log.shape}, printed {printed}")
+    print(f"{key}: {wall:.1f} s, launches {counts}, log {log.shape}, printed {printed}")
     if counts != {"gram": 0, "correlation": 0}:
-        fail(f"clip_vqgan launched K1/K2: {counts}")
-    if log.shape != (CV_ITERS, 4) or not np.isfinite(log).all() or log[:, 2].any():
-        fail(f"clip_vqgan: loss log {log.shape}, finite {bool(np.isfinite(log).all())}, from term {log[:, 2].any()}")
-    if size != (256, 256) or len(events) != CV_ITERS or engine.device.type != "cuda":
-        fail(f"clip_vqgan: image {size}, {len(events)} iterations timed, device {engine.device}")
-    if [ln.split(",")[0] for ln in printed] != [f"i: {CV_ITERS}", f"i: {CV_ITERS}", f"saved {run_dir}/{name}"]:
-        fail(f"clip_vqgan: printed lines {printed}")
+        fail(f"{key} launched K1/K2: {counts}")
+    if log.shape != (iters, 4) or not np.isfinite(log).all() or log[:, 2].any():
+        fail(f"{key}: loss log {log.shape}, finite {bool(np.isfinite(log).all())}, from term {log[:, 2].any()}")
+    if size != (256, 256) or len(events) != iters or engine.device.type != "cuda":
+        fail(f"{key}: image {size}, {len(events)} iterations timed, device {engine.device}")
+    if type(engine.clip).__name__ != ("CLIP" if backbone == "ViT-B/32" else "CLIPResNet"):
+        fail(f"{key}: the engine holds a {type(engine.clip).__name__} for {backbone}")
+    if [ln.split(",")[0] for ln in printed] != [f"i: {iters}", f"i: {iters}", f"saved {run_dir}/{name}"]:
+        fail(f"{key}: printed lines {printed}")
     gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-    summary = {"wall_s": wall, "launches": counts, "iterations": CV_ITERS, "ms_per_iter_median": statistics.median(gaps[1:]),
+    summary = {"backbone": backbone, "wall_s": wall, "launches": counts, "iterations": iters,
+               "ms_per_iter_median": statistics.median(gaps[1:]),
                "ms_first_iter": gaps[0], "ms_per_iter_max": max(gaps[1:]),
                "engine_init_s": spans["engine_init_s"], "prologue_s": spans["prologue_s"], "peak_bytes": peak,
                "first_terms": log[0].tolist(), "last_terms": log[-1].tolist(), "what": "ms between iteration starts "
                "(CUDA events), median of iterations 2..; prologue = content/style/text embeddings + z encode"}
-    print("clip_vqgan", json.dumps(summary))
-    results["clip_vqgan"] = summary
+    print(key, json.dumps(summary))
+    results[key] = summary
     shutil.rmtree(run_dir)
     return counts, engine
 
 
-def profile_clip_vqgan(results: dict, engine) -> None:
+def profile_clip_vqgan(results: dict, engine, key: str = "profile_clip_vqgan") -> None:
     """torch.profiler over CV_PROFILE_ITERS iterations of the main path's
     engine (warm), from a 256² image's z with a style image and the style
     text, after two warm-up iterations: device busy share, top kernels and
     operators, launches per iteration, and the device time under the
     forward's layers (VQGAN synth, cutouts, CLIP image tower; the
-    remainder of a step is backward and Adam); then ms per iteration
-    (median of 20 after 3 warm-up steps) with ``torch.backends.cudnn.benchmark``
-    off, on, on, off.  Report only."""
+    remainder of a step is backward and Adam); the CLIP image tower alone
+    on 64 normalised cutouts, its forward and its input gradient (CUDA
+    events, median of 10 after 3); then ms per iteration (median of 20
+    after 3 warm-up steps) with ``torch.backends.cudnn.benchmark`` off,
+    on, on, off.  Report only."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1751,6 +1774,23 @@ def profile_clip_vqgan(results: dict, engine) -> None:
     # run on autograd's device thread, outside the ranges: they are the step's remainder)
     layers = {e.key: e.device_time_total / 1e3 / CV_PROFILE_ITERS for e in avgs
               if e.key.startswith("clip_vqgan.") and e.device_type != cuda}
+    with torch.no_grad():
+        cuts = (cv.make_cutouts(img, engine.cut_size, engine.cutn, engine.draws) - engine.mean) / engine.std
+    cuts.requires_grad_(True)
+    cot = torch.randn((engine.cutn, engine.clip.cfg.embed_dim), device=cuts.device, generator=torch.Generator(
+        device=cuts.device).manual_seed(4))
+
+    def tower_forward():
+        with torch.no_grad():
+            engine.clip.encode_image(cuts)
+
+    def tower_backward():
+        out = engine.clip.encode_image(cuts)
+        torch.autograd.grad((out * cot).sum(), cuts)
+
+    tower = {"forward_ms": time_ms(tower_forward, reps=10), "forward_backward_ms": time_ms(tower_backward, reps=10)}
+    tower["backward_ms"] = tower["forward_backward_ms"] - tower["forward_ms"]
+    del cuts, cot
     bench_ms, saved = {}, torch.backends.cudnn.benchmark
     try:
         for bench in (False, True, True, False):  # in turns: cuDNN's heuristics against its autotuner
@@ -1769,10 +1809,11 @@ def profile_clip_vqgan(results: dict, engine) -> None:
         torch.backends.cudnn.benchmark = saved
     summary = {"iters": CV_PROFILE_ITERS, **device_profile(prof, wall_ms),
                "launches_per_iter": sum(e.count for e in avgs if e.device_type == cuda) / CV_PROFILE_ITERS,
-               "layer_device_ms_per_iter": layers, "cudnn_benchmark_ms_per_iter": bench_ms,
-               "what": "5 iterations at 256² (ViT-B/32, imagenet_16384, 64 cutouts), f32, TF32 off"}
-    print("profile clip_vqgan", json.dumps(summary))
-    results["profile_clip_vqgan"] = summary
+               "layer_device_ms_per_iter": layers, "clip_tower_ms": tower, "cudnn_benchmark_ms_per_iter": bench_ms,
+               "what": f"5 iterations at 256² ({type(engine.clip).__name__} {engine.cut_size}², imagenet_16384, "
+                       "64 cutouts), f32, TF32 off"}
+    print(key, json.dumps(summary))
+    results[key] = summary
 
 
 class _ListDraws:
@@ -1786,15 +1827,16 @@ class _ListDraws:
         return self.items.pop(0)
 
 
-def check_clip_vqgan_against_cpu(results: dict) -> None:
-    """The full-width models on the GPU and on the CPU from the same seeded
-    weights and cutout draws, TF32 off: CLIP image embeddings of 8 images
-    and text embeddings of 3 texts, and a decode from fixed indices, each
-    within max|Δ| / max|·| <= 1e-4; one iteration's loss terms within rtol
-    1e-3 with z fixed to codes (the CPU's indices of an encoded 256²
-    image, so both devices quantize alike); and the share of that encode's
-    quantize indices on which the devices agree (printed: with 16384
-    random codes, near-ties can pick another code)."""
+def check_clip_vqgan_against_cpu(results: dict, backbone: str = "ViT-B/32", key: str = "clip_vqgan_vs_cpu") -> None:
+    """The full-width models (ViT-B/32 or ``backbone``) on the GPU and on
+    the CPU from the same seeded weights and cutout draws, TF32 off: CLIP
+    image embeddings of 8 images and text embeddings of 3 texts, and a
+    decode from fixed indices, each within max|Δ| / max|·| <= 1e-4; one
+    iteration's loss terms within rtol 1e-3 with z fixed to codes (the
+    CPU's indices of an encoded 256² image, so both devices quantize
+    alike); and the share of that encode's quantize indices on which the
+    devices agree (printed: with 16384 random codes, near-ties can pick
+    another code)."""
     import numpy as np
     import torch
 
@@ -1805,12 +1847,14 @@ def check_clip_vqgan_against_cpu(results: dict) -> None:
     os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"  # seeded random weights, as the main path's --allow_random_weights
     g = torch.Generator().manual_seed(7)
     img, style = (torch.rand((1, 3, 256, 256), generator=g) for _ in range(2))
-    batch = (torch.rand((8, 3, 224, 224), generator=g) - 0.45) / 0.27
     toks = tokenize(["a lighthouse", CV_TEXT, "noise, static and snow"])
     codes = torch.randint(0, 16384, (1, 16, 16), generator=g)
     src = cv.CutoutDraws(11)
     draws = [src.cutouts(64, 4) for _ in range(3)]  # content, style, one iteration
-    engines = {dev: cv.ClipVQGANEngine(seed=0, device=dev, draws=_ListDraws(draws)) for dev in ("cuda", "cpu")}
+    engines = {dev: cv.ClipVQGANEngine(clip_backbone=backbone, seed=0, device=dev, draws=_ListDraws(draws))
+               for dev in ("cuda", "cpu")}
+    res_side = engines["cpu"].cut_size
+    batch = (torch.rand((8, 3, res_side, res_side), generator=g) - 0.45) / 0.27
     res = {}
     for dev, eng in engines.items():
         with torch.no_grad():
@@ -1835,12 +1879,301 @@ def check_clip_vqgan_against_cpu(results: dict) -> None:
     tg, tc = res["cuda"]["terms"], res["cpu"]["terms"]
     terms_rel = float(np.max(np.abs(tg - tc) / np.where(tc == 0, 1.0, np.abs(tc))))  # the from term is 0 on both
     agree = float((res["cuda"]["indices"] == res["cpu"]["indices"]).double().mean())
-    print(f"clip_vqgan GPU vs CPU: {rels}, terms cuda {tg.tolist()} cpu {tc.tolist()} (rel {terms_rel:.3e}), "
+    print(f"{key} ({backbone}) GPU vs CPU: {rels}, terms cuda {tg.tolist()} cpu {tc.tolist()} (rel {terms_rel:.3e}), "
           f"quantize indices agree on {agree:.4f} of {res['cpu']['indices'].numel()}")
-    results["clip_vqgan_vs_cpu"] = {**rels, "terms_rel": terms_rel, "terms_cuda": tg.tolist(), "terms_cpu": tc.tolist(),
-                                    "indices_agree": agree}
+    results[key] = {"backbone": backbone, **rels, "terms_rel": terms_rel, "terms_cuda": tg.tolist(),
+                    "terms_cpu": tc.tolist(), "indices_agree": agree}
     if not (max(rels.values()) <= 1e-4 and terms_rel <= 1e-3):
-        fail(f"clip_vqgan GPU vs CPU: {rels}, terms rel {terms_rel:.3e}")
+        fail(f"{key} ({backbone}) GPU vs CPU: {rels}, terms rel {terms_rel:.3e}")
+
+
+RN_BACKBONES = ("RN50", "RN101", "RN50x4")
+RN_ITERS = 50
+
+
+def tower_cost(backbone: str) -> dict:
+    """A CLIP image tower's forward GFLOP and its layers' output MB for one
+    image at its input resolution, counted from shapes: the tower built on
+    the meta device, torch's FlopCounterMode over its convolutions and
+    products, forward hooks over its leaf modules' outputs (f32)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from maua_style_tpu_torch.models.clip import model, resnet
+
+    with torch.device("meta"):
+        if backbone == "ViT-B/32":
+            tower, res = model.VisionTransformer(model.VIT_B32), model.VIT_B32.image_resolution
+        else:
+            tower, res = resnet.ModifiedResNet(resnet.RESNET_CONFIGS[backbone]), resnet.RESNET_CONFIGS[backbone].image_resolution
+    outs = []
+    hooks = [m.register_forward_hook(lambda m, i, o: outs.append(o.numel())) for m in tower.modules()
+             if not list(m.children())]
+    with FlopCounterMode(display=False) as counter, torch.no_grad():
+        tower(torch.empty((1, 3, res, res), device="meta"))
+    for h in hooks:
+        h.remove()
+    return {"resolution": res, "forward_gflop": counter.get_total_flops() / 1e9, "layer_outputs_mb": 4 * sum(outs) / 1e6}
+
+
+def check_clip_embeddings_against_cpu(results: dict) -> None:
+    """RN50, RN101 and RN50x4 with seeded random weights (``_load_clip``'s)
+    on the GPU and on the CPU, TF32 off: image embeddings of 4 normalised
+    images at each tower's resolution and text embeddings of 3 texts,
+    within max|Δ| / max|·| <= 1e-4; with each tower's cost from its shapes."""
+    import copy
+
+    import torch
+
+    from maua_style_tpu_torch.models.clip import tokenize
+    from maua_style_tpu_torch.pipelines import clip_vqgan as cv
+
+    os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"
+    toks = tokenize(["a lighthouse", CV_TEXT, "noise, static and snow"])
+    rows = {}
+    for backbone in RN_BACKBONES:
+        cpu = cv._load_clip(backbone).eval().requires_grad_(False)
+        gpu = copy.deepcopy(cpu).cuda()
+        side = cpu.input_resolution
+        batch = (torch.rand((4, 3, side, side), generator=torch.Generator().manual_seed(13)) - 0.45) / 0.27
+        with torch.no_grad():
+            got = {"image": gpu.encode_image(batch.cuda()).cpu(), "text": gpu.encode_text(toks).cpu()}
+            want = {"image": cpu.encode_image(batch), "text": cpu.encode_text(toks)}
+        rel = {k: float((got[k].double() - want[k].double()).abs().max() / want[k].double().abs().max()) for k in got}
+        rows[backbone] = {**rel, "embed_dim": int(want["image"].shape[1]), **tower_cost(backbone)}
+        print(f"{backbone} GPU vs CPU:", json.dumps(rows[backbone]))
+        del cpu, gpu
+        torch.cuda.empty_cache()
+        if not max(rel.values()) <= 1e-4:
+            fail(f"{backbone} GPU vs CPU: {rel}")
+    rows["ViT-B/32"] = tower_cost("ViT-B/32")
+    results["clip_resnet_vs_cpu"] = rows
+
+
+CVS_FRAMES, CVS_SIZE, CVS_ITERS, CVS_PASSES = 6, 256, 10, 2
+
+
+def run_clip_video_style(results: dict) -> dict[str, int]:
+    """``pipelines.clip_video_style.main`` on a synthetic 6-frame 1024x576
+    clip (phase 5's pattern) and a 768² style with a style text: ViT-B/32
+    and imagenet_16384 (seeded random weights, f32, TF32 off), SPyNet + PWC
+    at the clip's size, ``--image_sizes 256``, 2 passes of 10 iterations a
+    frame, ``--init prev_warp`` (the first pass warps by the flow).  Checks
+    the frames, every .flo (finite, the clip's shape) and its preview, each
+    pass's frames at 256x144 and the muxed video; K1 0 and K2 launches
+    against the pre-pass's formula, each K2 input among phase 3's shapes;
+    one ``update_styles`` for the scale.  Reports s per frame and the wall."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_style_tpu_torch.io.flo import read_flo
+    from maua_style_tpu_torch.models.flownets import pwc
+    from maua_style_tpu_torch.ops.resize import scale_shape
+    from maua_style_tpu_torch.pipelines import clip_video_style as cvs
+    from maua_style_tpu_torch.pipelines import clip_vqgan as cv
+    from maua_style_tpu_torch.pipelines import flow_prepass
+
+    run_dir = os.path.join(OUT, "clip_video_style")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    v_path, s_path = write_video(run_dir, CVS_FRAMES)
+    argv = ["--content", v_path, "--style", s_path, "--style_text", CV_TEXT, "--output_dir", run_dir,
+            "--image_sizes", str(CVS_SIZE), "--num_iters", str(CVS_ITERS * CVS_PASSES),
+            "--passes_per_scale", str(CVS_PASSES), "--init", "prev_warp", "--flow_models", "spynet,pwc",
+            "--clip_backbone", "ViT-B/32", "--allow_random_weights", "--seed", "0", "--gpu", "0"]
+    frames, styles, corr_inputs = [], [], set()
+
+    def timed_frame(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        frames.append({"s": time.perf_counter() - t0, "iters": kw["iterations"], "hw": list(np.shape(out)[1:3]),
+                       "finite": bool(np.isfinite(self.last_loss_log).all())})
+        return out
+
+    def recording_corr(fn, f1, f2, d=4, s=1):
+        corr_inputs.add((*f1.shape, d, s))
+        return fn(f1, f2, d, s)
+
+    cv._ENGINE = None  # one engine per process: this phase builds its own
+    with patched((cv.ClipVQGANEngine, "optimize_cached", timed_frame),
+                 (cv.ClipVQGANEngine, "update_styles", lambda fn, self, *a: styles.append(len(a[0])) or fn(self, *a)),
+                 (pwc, "correlation", recording_corr)):
+        reset_counts()
+        t0 = time.perf_counter()
+        cvs.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    engine, cv._ENGINE = cv._ENGINE, None
+    want_corr = K2_PER_FORWARD["pwc"] * 2 * -(-CVS_FRAMES // flow_prepass.PAIR_CHUNK)
+    print(f"clip_video_style: {wall:.1f} s, launches {counts} (expected gram 0, correlation {want_corr})")
+    if counts != {"gram": 0, "correlation": want_corr}:
+        fail(f"clip_video_style launches {counts} != gram 0, correlation {want_corr}")
+    checked = {(flow_prepass.PAIR_CHUNK, c, h, w, 4, 1) for c, h, w in pwc_levels(*VID_HW)}  # phase 3's B = 8 rows
+    if corr_inputs != checked:
+        fail(f"clip_video_style's K2 inputs {sorted(corr_inputs)} != phase 3's {sorted(checked)}")
+    if engine is None or engine.device.type != "cuda" or styles != [1]:
+        fail(f"clip_video_style: engine {engine}, update_styles calls {styles}")
+
+    work = os.path.join(run_dir, "vid_style")
+    names = [f"{i + 1:05d}" for i in range(CVS_FRAMES)]
+    hw = tuple(scale_shape(VID_HW, CVS_SIZE / max(VID_HW)))
+
+    def png_hw(path):
+        if not os.path.exists(path):
+            fail(f"missing {path}")
+        with Image.open(path) as img:
+            return img.height, img.width
+
+    for n in names:
+        if png_hw(os.path.join(work, "frames", f"{n}.png")) != VID_HW:
+            fail(f"frame {n}: wrong shape")
+        for p in range(1, CVS_PASSES + 1):
+            if png_hw(os.path.join(work, str(CVS_SIZE), f"{p}_{n}.png")) != hw:
+                fail(f"{CVS_SIZE}/{p}_{n}.png: wrong shape")
+    for a, b in zip(names, names[1:] + names[:1]):
+        for stem in (f"forward_{a}_{b}", f"backward_{b}_{a}"):
+            flo = read_flo(os.path.join(work, "flow", stem + ".flo"))
+            if flo.shape != (*VID_HW, 2) or not np.isfinite(flo).all():
+                fail(f"{stem}.flo: shape {flo.shape} or not finite")
+            if png_hw(os.path.join(work, "flow", stem + ".png")) != VID_HW:
+                fail(f"{stem}.png: wrong shape")
+    mp4, npy = (os.path.join(work, f"vid_style_{CVS_SIZE}.{ext}") for ext in ("mp4", "npy"))
+    if not os.path.exists(mp4) and not (os.path.exists(npy) and np.load(npy).shape == (CVS_FRAMES, *hw, 3)):
+        fail(f"no muxed video for {CVS_SIZE}")
+    if len(frames) != CVS_FRAMES * CVS_PASSES or any(f["iters"] != CVS_ITERS or tuple(f["hw"]) != hw or not f["finite"]
+                                                     for f in frames):
+        fail(f"clip_video_style frames: {frames}")
+    per_pass = [statistics.median(f["s"] for f in frames[p * CVS_FRAMES:(p + 1) * CVS_FRAMES]) for p in range(CVS_PASSES)]
+    summary = {"wall_s": wall, "launches": counts, "s_per_frame_median_by_pass": per_pass,
+               "s_per_frame_mean": sum(f["s"] for f in frames) / len(frames), "frames": len(frames),
+               "k2_inputs": sorted(corr_inputs), "argv": argv}
+    print("clip_video_style", json.dumps({k: v for k, v in summary.items() if k != "argv"}))
+    results["clip_video_style"] = summary
+    del engine
+    torch.cuda.empty_cache()
+    return counts
+
+
+SIM_SIDE, SIM_SIZES, SIM_ITERS = 512, (256, 512), (20, 10)
+
+
+def similarity_gram_shapes() -> list[tuple[int, int, int]]:
+    """(B, C, N) of K1's inputs on the similarity phase's path: VGG-19's
+    five style layers of a square image at each of its two sizes."""
+    return [(1, c, n) for size in SIM_SIZES for c, n in vgg_style_shapes(size)]
+
+
+def check_similarity_gram(results: dict) -> dict:
+    """K1 at the similarity phase's ten input shapes, f32, with phase 2's
+    bars and times."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = []
+    for shape in similarity_gram_shapes():
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), **measure_gram(f)}
+        rows.append(row)
+        print("similarity gram", json.dumps(row))
+        del f
+    results["gram_similarity"] = rows
+    return {"ms": sum(r["kernel_ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows),
+            "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows), "shapes": len(rows)}
+
+
+def write_similarity_dataset(d: str) -> list[str]:
+    """Three 512² images with distinct colour distributions: warm
+    gradients, cool stripes, green and magenta rings."""
+    import numpy as np
+    from PIL import Image
+
+    yy, xx = np.mgrid[0:SIM_SIDE, 0:SIM_SIDE].astype(np.float32) / (SIM_SIDE - 1)
+    r = np.hypot(xx - 0.5, yy - 0.5)
+    images = {
+        "warm": np.stack([200 + 55 * xx, 80 + 120 * yy, 30 + 40 * xx * yy], -1),
+        "cool": np.stack([30 + 40 * yy, 90 + 60 * (np.sin(xx * 40) > 0), 160 + 95 * xx], -1),
+        "rings": np.stack([120 + 120 * np.sin(r * 60), 200 - 150 * r, 140 + 110 * np.cos(r * 60)], -1),
+    }
+    paths = []
+    for stem, img in images.items():
+        paths.append(os.path.join(d, f"{stem}.png"))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(paths[-1])
+    return paths
+
+
+def run_similarity(results: dict) -> dict[str, int]:
+    """``pipelines.similarity.main`` on three synthetic 512² images:
+    ``--image_sizes 256,512 --num_iters 20,10 --grids``, the CLI's other
+    defaults (VGG-19 with seeded random weights, L-BFGS, f32), 9 img_img
+    jobs (each image with each of its two neighbours, and with both).
+    Checks hists.npy, dists.npy (inf on the diagonal), the grids, each
+    job's artifacts; K1 launches against img_img's formula summed over the
+    jobs (5 an iteration, 5 per style image per scale), every K1 input
+    among phase 2's shapes, K2 0.  Reports the wall s of each job."""
+    import numpy as np
+    from PIL import Image
+
+    from maua_style_tpu_torch import losses
+    from maua_style_tpu_torch.pipelines import img_img as img_img_module
+    from maua_style_tpu_torch.pipelines import similarity as sim
+    from maua_style_tpu_torch.utils import name
+
+    run_dir = os.path.join(OUT, "similarity")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    data, out = os.path.join(run_dir, "data"), os.path.join(run_dir, "out")
+    os.makedirs(data)
+    images = write_similarity_dataset(data)
+    os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"  # the CLI has no --allow_random_weights; its img_img reads this
+    jobs, seen = [], set()
+
+    def timed_job(fn, args):
+        t0 = time.perf_counter()
+        fn(args)
+        jobs.append({"output": args.output, "styles": len(args.style), "s": time.perf_counter() - t0})
+
+    def recording(fn, x, use_covariance=False):
+        seen.add((x.shape[0], x.shape[1], x.shape[2] * x.shape[3]))
+        return fn(x, use_covariance)
+
+    argv = [data, "--output_dir", out, "--image_sizes", ",".join(map(str, SIM_SIZES)),
+            "--num_iters", ",".join(map(str, SIM_ITERS)), "--grids", "--gpu", "0"]
+    with patched((img_img_module, "img_img", timed_job), (losses, "batch_gram", recording)):
+        reset_counts()
+        t0 = time.perf_counter()
+        sim.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    want_gram = sum(5 * (it + j["styles"]) for j in jobs for it in SIM_ITERS)
+    print(f"similarity: {wall:.1f} s, {len(jobs)} jobs, launches {counts} (expected gram {want_gram}, correlation 0)")
+    if len(jobs) != 9 or sorted(j["styles"] for j in jobs) != [2] * 6 + [3] * 3:
+        fail(f"similarity jobs {jobs}")
+    if counts != {"gram": want_gram, "correlation": 0}:
+        fail(f"similarity launches {counts} != gram {want_gram}, correlation 0")
+    if seen != set(similarity_gram_shapes()):
+        fail(f"similarity's Gram inputs {sorted(seen)} != phase 2's {sorted(similarity_gram_shapes())}")
+    hists, dists = np.load(os.path.join(data, "hists.npy")), np.load(os.path.join(data, "dists.npy"))
+    if hists.shape != (3, 3, 64) or dists.shape != (3, 3) or not np.isinf(np.diag(dists)).all() \
+            or not np.isfinite(dists[~np.eye(3, dtype=bool)]).all():
+        fail(f"similarity caches: hists {hists.shape}, dists {dists.tolist()}")
+    for img in images:
+        with Image.open(os.path.join(data, "grids", f"{name(img)}.png")) as g:
+            if g.size != (900, 900):
+                fail(f"grid of {img}: {g.size}")
+    for j in jobs:
+        for size in SIM_SIZES:
+            with Image.open(f"{j['output']}_{size}.png") as img:
+                arr = np.asarray(img)
+            if arr.shape != (size, size, 3) or not arr.std() > 0:
+                fail(f"{j['output']}_{size}.png: shape {arr.shape}, std {arr.std()}")
+    summary = {"wall_s": wall, "launches": counts, "jobs": len(jobs), "s_per_job": [j["s"] for j in jobs],
+               "s_per_job_median": statistics.median(j["s"] for j in jobs), "argv": argv}
+    print("similarity", json.dumps({k: v for k, v in summary.items() if k != "argv"}))
+    results["similarity"] = summary
+    return counts
 
 
 def main() -> int:
@@ -1876,7 +2209,8 @@ def main() -> int:
         gram, corr = run_phases(results)
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
-        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca", "clip_vqgan"):
+        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca", "clip_vqgan", "clip_vqgan_rn50",
+                  "clip_video_style", "similarity"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -1893,6 +2227,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram = check_gram(results)
     gram["img_vid_shapes"] = check_video_gram(results)
     gram["nca_shapes"] = check_nca_gram(results)
+    gram["similarity_shapes"] = check_similarity_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -1914,11 +2249,21 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     profile_clip_vqgan(results, cv_engine)
     del cv_engine
     check_clip_vqgan_against_cpu(results)
+    rn_counts, rn_engine = run_clip_vqgan(results, "clip_vqgan_rn50", "RN50", RN_ITERS)
+    profile_clip_vqgan(results, rn_engine, "profile_clip_vqgan_rn50")
+    del rn_engine
+    check_clip_vqgan_against_cpu(results, "RN50", "clip_vqgan_rn50_vs_cpu")
+    check_clip_embeddings_against_cpu(results)
+    cvs_counts = run_clip_video_style(results)
+    shutil.rmtree(os.path.join(OUT, "clip_video_style"))
+    sim_counts = run_similarity(results)
+    shutil.rmtree(os.path.join(OUT, "similarity"))
     drive_flags(results)
     check_determinism(results)
     # launches: each path's own count, read right after it ran from zero
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
-             "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts}
+             "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,
+             "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

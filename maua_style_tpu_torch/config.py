@@ -270,11 +270,14 @@ def setup_devices(args) -> torch.device:
     return device
 
 
-def load_args(filepath: str) -> argparse.Namespace:
-    """Load a full args preset from JSON (reference config.py:210-224)."""
+def load_args(filepath: str, **overrides) -> argparse.Namespace:
+    """Load a full args preset from JSON (reference config.py:210-224);
+    ``overrides`` (``gpu="c"``, ...) replace the preset's values before the
+    devices are chosen."""
     args = argparse.Namespace()
     with open(filepath, "r") as f:
         args.__dict__ = json.load(f)
+    args.__dict__.update(overrides)
     if getattr(args, "content", None) is not None and getattr(args, "style", None) is not None:
         args.output = f"{args.output_dir}/{_output_name(args)}"
     if not hasattr(args, "ffmpeg"):

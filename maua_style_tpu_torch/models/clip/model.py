@@ -8,8 +8,8 @@ keys (``visual.conv1.weight``, ``transformer.resblocks.0.attn.in_proj_weight``,
 ``load_state_dict`` (``convert.py``).  Attention is the fused-qkv product,
 a softmax and a second product, in float32.
 
-The ResNet backbones (RN50, RN101, RN50x4) are not ported yet (ROADMAP
-item 14).
+The ResNet backbones (RN50, RN101, RN50x4) are ``resnet.CLIPResNet``: this
+module's text tower beside a ModifiedResNet visual tower.
 """
 
 from __future__ import annotations
@@ -138,12 +138,13 @@ class VisionTransformer(nn.Module):
 class CLIP(nn.Module):
     """``encode_image``: (B, 3, R, R), normalised with CLIP_MEAN/STD by the
     caller -> (B, embed_dim); ``encode_text``: (B, context_length) token
-    ids -> (B, embed_dim)."""
+    ids -> (B, embed_dim).  ``visual`` replaces the ViT image tower (the
+    ResNet backbones pass theirs); the text tower is sized by ``cfg``."""
 
-    def __init__(self, cfg: CLIPConfig = VIT_B32):
+    def __init__(self, cfg: CLIPConfig = VIT_B32, visual: nn.Module | None = None):
         super().__init__()
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg)
+        self.visual = VisionTransformer(cfg) if visual is None else visual
         tw = cfg.text_width
         self.token_embedding = nn.Embedding(cfg.vocab_size, tw)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, tw))
@@ -168,38 +169,56 @@ class CLIP(nn.Module):
         return x[torch.arange(x.shape[0], device=x.device), eot] @ self.text_projection
 
 
-def init_clip(cfg: CLIPConfig = VIT_B32, seed: int = 0) -> CLIP:
-    """A CLIP with seeded random weights at the JAX package's scales
-    (normal: patch conv and class embedding 0.02, positional embeddings
-    0.01, projections width^-0.5, the blocks' weights width^-0.5; zero
-    biases, unit LayerNorms).  Drawn on the CPU from a ``torch.Generator``,
-    so every device gets the same weights; it does not reproduce JAX's
-    threefry draws (``convert.clip_params_from_jax`` carries those across)."""
-    gen = torch.Generator().manual_seed(seed)
-    model = CLIP(cfg)
-
+def _normal(gen: torch.Generator):
     def normal(p: torch.Tensor, std: float) -> None:
         p.copy_(torch.randn(p.shape, generator=gen) * std)
 
-    with torch.no_grad():
-        v = model.visual
-        normal(v.conv1.weight, 0.02)
-        normal(v.class_embedding, 0.02)
-        normal(v.positional_embedding, 0.01)
-        normal(v.proj, cfg.vision_width ** -0.5)
-        normal(model.token_embedding.weight, 0.02)
-        normal(model.positional_embedding, 0.01)
-        normal(model.text_projection, cfg.text_width ** -0.5)
-        for tower, width in ((v.transformer, cfg.vision_width), (model.transformer, cfg.text_width)):
-            for blk in tower.resblocks:
-                s = 1.0 / np.sqrt(width)
-                for weight, bias in ((blk.attn.in_proj_weight, blk.attn.in_proj_bias),
-                                     (blk.attn.out_proj.weight, blk.attn.out_proj.bias),
-                                     (blk.mlp.c_fc.weight, blk.mlp.c_fc.bias),
-                                     (blk.mlp.c_proj.weight, blk.mlp.c_proj.bias)):
-                    normal(weight, s)
-                    bias.zero_()
+    return normal
+
+
+def _init_blocks(tower: Transformer, width: int, gen: torch.Generator) -> None:
+    """The blocks' weights normal width^-0.5, zero biases."""
+    normal = _normal(gen)
+    for blk in tower.resblocks:
+        for weight, bias in ((blk.attn.in_proj_weight, blk.attn.in_proj_bias),
+                             (blk.attn.out_proj.weight, blk.attn.out_proj.bias),
+                             (blk.mlp.c_fc.weight, blk.mlp.c_fc.bias),
+                             (blk.mlp.c_proj.weight, blk.mlp.c_proj.bias)):
+            normal(weight, width ** -0.5)
+            bias.zero_()
+
+
+@torch.no_grad()
+def init_text_tower(model: CLIP, gen: torch.Generator) -> None:
+    """Seeded random text-tower weights at the JAX package's scales: token
+    embedding 0.02, positional embedding 0.01, projection and blocks
+    width^-0.5 (zero biases, unit LayerNorms)."""
+    normal, tw = _normal(gen), model.cfg.text_width
+    normal(model.token_embedding.weight, 0.02)
+    normal(model.positional_embedding, 0.01)
+    normal(model.text_projection, tw ** -0.5)
+    _init_blocks(model.transformer, tw, gen)
+
+
+@torch.no_grad()
+def init_clip(cfg: CLIPConfig = VIT_B32, seed: int = 0) -> CLIP:
+    """A CLIP with seeded random weights at the JAX package's scales
+    (normal: patch conv and class embedding 0.02, positional embedding
+    0.01, projection and the blocks' weights width^-0.5; then the text
+    tower's, ``init_text_tower``).  Drawn on the CPU from a
+    ``torch.Generator``, so every device gets the same weights; it does not
+    reproduce JAX's threefry draws (``convert.clip_params_from_jax``
+    carries those across)."""
+    gen = torch.Generator().manual_seed(seed)
+    normal, model = _normal(gen), CLIP(cfg)
+    v = model.visual
+    normal(v.conv1.weight, 0.02)
+    normal(v.class_embedding, 0.02)
+    normal(v.positional_embedding, 0.01)
+    normal(v.proj, cfg.vision_width ** -0.5)
+    _init_blocks(v.transformer, cfg.vision_width, gen)
+    init_text_tower(model, gen)
     return model
 
 
-__all__ = ["CLIP", "CLIPConfig", "VIT_B32", "CLIP_MEAN", "CLIP_STD", "init_clip", "quick_gelu"]
+__all__ = ["CLIP", "CLIPConfig", "VIT_B32", "CLIP_MEAN", "CLIP_STD", "init_clip", "init_text_tower", "quick_gelu"]

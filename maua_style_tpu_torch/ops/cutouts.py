@@ -14,6 +14,10 @@ Randomness (the phase and the (cutn, 2) crop offsets) comes from a
 ``CutoutDraws`` object, drawn on the host from a CPU ``torch.Generator``:
 the crop offsets are Python integers, so cropping a device tensor needs no
 device-to-host read.
+
+``method="bilinear"`` is the JAX package's earlier path (off the engine's
+default): iid sizes u^cut_pow, and each slot sampled from the image by one
+half-pixel bilinear grid with border padding.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from .grads import clamp_with_grad
+from .warp import grid_sample
 
 
 class CutoutDraws:
@@ -37,6 +42,11 @@ class CutoutDraws:
         """A phase in [0, phases) and (cutn, 2) float32 offsets in [0, 1)."""
         phase = int(torch.randint(0, phases, (), generator=self.generator))
         return phase, torch.rand((cutn, 2), generator=self.generator).numpy()
+
+    def bilinear(self, cutn: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Three (cutn,) float32 uniforms in [0, 1): sizes, x and y offsets."""
+        u = torch.rand((3, cutn), generator=self.generator).numpy()
+        return u[0], u[1], u[2]
 
 
 def lanczos_prefilter_matrix(src: int, dst: int) -> np.ndarray:
@@ -118,12 +128,15 @@ def make_cutouts(
     draws: CutoutDraws,
     cut_pow: float = 1.0,
     phases: int = 4,
+    method: str = "lanczos",
 ) -> torch.Tensor:
     """x: (1, C, H, W) in [0, 1] -> (cutn, C, cut_size, cut_size).
 
     One ``draws.cutouts`` call gives the phase, which fixes every slot's
     size, and the offsets; slot i's crop starts at floor(u · (H − s + 1)),
     computed in float32 as the JAX package does."""
+    if method == "bilinear":
+        return _make_cutouts_bilinear(x, cut_size, cutn, draws, cut_pow)
     _, _, h, w = x.shape
     p, offs = draws.cutouts(cutn, phases)
     sizes = stratified_sizes(h, w, cut_size, cutn, cut_pow, phase=(p + 0.5) / phases)
@@ -135,6 +148,28 @@ def make_cutouts(
         mat = _resample_tensor(s, cut_size, x.device)
         outs.append(mat @ x[0, :, oy : oy + s, ox : ox + s] @ mat.T)
     return clamp_with_grad(torch.stack(outs), 0.0, 1.0)
+
+
+def _make_cutouts_bilinear(x, cut_size, cutn, draws, cut_pow):
+    """iid sizes floor(u^cut_pow · (max − min) + min) and offsets
+    floor(u · (side − size + 1)), in float32 as the JAX package's; output
+    pixel i of a slot samples the image at offset + (i + 0.5) · size /
+    cut_size − 0.5, bilinear, border padding (JAX cutouts.py:155-187)."""
+    _, _, h, w = x.shape
+    max_size, min_size = min(h, w), min(h, w, cut_size)
+    u_size, u_ox, u_oy = (np.asarray(u, np.float32) for u in draws.bilinear(cutn))
+    sizes = np.floor(u_size ** np.float32(cut_pow) * np.float32(max_size - min_size) + np.float32(min_size))
+    offx = np.floor(u_ox * (np.float32(w) - sizes + np.float32(1)))
+    offy = np.floor(u_oy * (np.float32(h) - sizes + np.float32(1)))
+
+    def axis(off, side):  # (cutn, cut_size) grid coordinates in [-1, 1]
+        ii = (torch.arange(cut_size, dtype=torch.float32, device=x.device) + 0.5) / cut_size
+        size, off = (torch.from_numpy(a).to(x.device)[:, None] for a in (sizes, off))
+        return (off + ii * size - 0.5 + 0.5) * 2.0 / side - 1.0
+
+    gx, gy = axis(offx, w), axis(offy, h)
+    grid = torch.stack(torch.broadcast_tensors(gx[:, None, :], gy[:, :, None]), dim=-1)  # (cutn, cs, cs, (x, y))
+    return clamp_with_grad(grid_sample(x.expand(cutn, -1, -1, -1), grid), 0.0, 1.0)
 
 
 __all__ = [

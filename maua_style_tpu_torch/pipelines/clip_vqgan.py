@@ -36,15 +36,13 @@ import torch
 from ..engine.lbfgs import Adam
 from ..engine.optimize import apply_precision, resolve_device, to_nchw, to_nhwc
 from ..models import vqgan as vq
-from ..models.clip import CLIP, VIT_B32, init_clip, tokenize
+from ..models.clip import CLIP, RESNET_CONFIGS, VIT_B32, CLIPResNet, init_clip, init_clip_resnet, tokenize
 from ..models.clip.convert import clip_from_state_dict, clip_params_from_jax, load_clip_npz
 from ..models.clip.model import CLIP_MEAN, CLIP_STD
 from ..models.registry import allow_random_weights
 from ..ops.cutouts import CutoutDraws, make_cutouts
 from ..ops.grads import clamp_with_grad, replace_grad, spherical_dist
 from ..ops.resize import resize_bilinear
-
-RESNET_BACKBONES = ("RN50", "RN101", "RN50x4")
 
 
 def size_to_fit(size, max_dim, scale_up=False):
@@ -60,20 +58,8 @@ def size_to_fit(size, max_dim, scale_up=False):
     return new_w, new_h
 
 
-def _load_clip(clip_backbone: str) -> CLIP:
-    """ViT-B/32 from ``modelzoo/clip_vitb32.npz`` or ``clip-vit-b-32.npz``
-    (the JAX package's converted tree, read with the default config), else
-    an error unless random weights are allowed."""
-    if clip_backbone in RESNET_BACKBONES:
-        raise NotImplementedError(
-            f"CLIP backbone {clip_backbone!r} is not ported yet (ROADMAP item 14: models/clip/resnet.py); use ViT-B/32"
-        )
-    if clip_backbone != "ViT-B/32":
-        raise NotImplementedError(f"CLIP backbone {clip_backbone!r} not implemented; use ViT-B/32")
-    candidates = ("modelzoo/clip_vitb32.npz", "modelzoo/clip-vit-b-32.npz")
-    for cand in candidates:
-        if os.path.exists(cand):
-            return clip_from_state_dict(clip_params_from_jax(load_clip_npz(cand)), VIT_B32)
+def _missing_clip_checkpoint(candidates) -> None:
+    """Missing CLIP weights are an error unless random weights are allowed."""
     if not allow_random_weights(None):
         raise FileNotFoundError(
             f"No CLIP checkpoint (searched {list(candidates)}).\n"
@@ -82,6 +68,29 @@ def _load_clip(clip_backbone: str) -> CLIP:
             f"or pass --allow_random_weights to run with deterministic random "
             f"weights (outputs will be meaningless; for tests/smoke only)."
         )
+
+
+def _load_clip(clip_backbone: str) -> CLIP:
+    """ViT-B/32 from ``modelzoo/clip_vitb32.npz`` or ``clip-vit-b-32.npz``,
+    a ResNet backbone from ``modelzoo/clip_{rn50,rn101,rn50x4}.npz`` (the
+    JAX package's converted trees, read at the backbone's config), else an
+    error unless random weights are allowed."""
+    if clip_backbone in RESNET_CONFIGS:
+        path = f"modelzoo/clip_{clip_backbone.lower()}.npz"
+        if os.path.exists(path):
+            model = CLIPResNet.from_backbone(clip_backbone)
+            model.load_state_dict(clip_params_from_jax(load_clip_npz(path)))
+            return model
+        _missing_clip_checkpoint((path,))
+        print(f"Warning: no CLIP checkpoint ({path}); using deterministic random init.")
+        return init_clip_resnet(clip_backbone)
+    if clip_backbone != "ViT-B/32":
+        raise NotImplementedError(f"CLIP backbone {clip_backbone!r} not implemented; use ViT-B/32, RN50, RN101 or RN50x4")
+    candidates = ("modelzoo/clip_vitb32.npz", "modelzoo/clip-vit-b-32.npz")
+    for cand in candidates:
+        if os.path.exists(cand):
+            return clip_from_state_dict(clip_params_from_jax(load_clip_npz(cand)), VIT_B32)
+    _missing_clip_checkpoint(candidates)
     print("Warning: no CLIP checkpoint (modelzoo/clip_vitb32.npz); using deterministic random init.")
     return init_clip(VIT_B32)
 

@@ -25,8 +25,9 @@ import torch
 from maua_style_tpu.models.clip import convert as jax_convert
 from maua_style_tpu.models.clip import model as jax_model
 from maua_style_tpu.models.clip import tokenizer as jax_tok
-from maua_style_tpu_torch.models.clip import convert, model, tokenizer
+from maua_style_tpu_torch.models.clip import convert, model, resnet, tokenizer
 from maua_style_tpu_torch.pipelines import clip_vqgan
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 TINY = model.CLIPConfig(image_resolution=32, patch_size=16, vision_width=128, vision_layers=2, vision_heads=2,
                         embed_dim=32, text_width=64, text_heads=1, text_layers=2)
@@ -226,8 +227,26 @@ def test_init_clip_seeded():
 
 
 @pytest.mark.parametrize("backbone", ["RN50", "RN101", "RN50x4"])
-def test_resnet_backbones_not_ported(backbone):
-    with pytest.raises(NotImplementedError, match="item 14"):
+def test_resnet_backbones_not_ported(backbone, monkeypatch, tmp_path):
+    """The ResNet backbones, once refused here, are ported: with no
+    checkpoint ``_load_clip`` raises naming the backbone's npz unless random
+    weights are allowed, and an OpenAI state dict's shapes give the
+    backbone's configs and name through the JAX package's inference."""
+    monkeypatch.delenv("MAUA_ALLOW_RANDOM_WEIGHTS", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match=f"clip_{backbone.lower()}.npz"):
         clip_vqgan._load_clip(backbone)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        convert.clip_from_state_dict({"visual.attnpool.c_proj.weight": torch.zeros(2, 2)})
+    rn = resnet.RESNET_CONFIGS[backbone]
+    tw, th, tl = resnet.TEXT_CFGS[backbone]
+    c = rn.width * 32
+    shapes = {"visual.conv1.weight": (rn.width // 2, 3, 3, 3), "visual.attnpool.c_proj.weight": (rn.embed_dim, c),
+              "visual.attnpool.positional_embedding": ((rn.image_resolution // 32) ** 2 + 1, c),
+              "ln_final.weight": (tw,), "text_projection": (tw, rn.embed_dim), "token_embedding.weight": (49408, tw),
+              "positional_embedding": (77, tw)}
+    shapes.update({f"visual.layer{s + 1}.{i}.conv1.weight": (1,) for s, n in enumerate(rn.layers) for i in range(n)})
+    shapes.update({f"transformer.resblocks.{i}.ln_1.weight": (tw,) for i in range(tl)})
+    sd = {k: torch.zeros(()).expand(v) for k, v in shapes.items()}
+    got, cfg = convert.resnet_config_from_state_dict(sd)
+    assert got == rn and resnet.backbone_name(got) == backbone
+    assert (cfg.text_width, cfg.text_heads, cfg.text_layers, cfg.embed_dim, cfg.image_resolution) == \
+        (tw, th, tl, rn.embed_dim, rn.image_resolution)

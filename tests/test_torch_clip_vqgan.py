@@ -34,6 +34,7 @@ from maua_style_tpu_torch.models.clip import model as clip_model
 from maua_style_tpu_torch.models.clip.convert import clip_from_state_dict, clip_params_from_jax
 from maua_style_tpu_torch.pipelines import clip_vqgan as cv
 from test_torch_grads_cutouts import _Replay, jax_cutout_draw
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 TINY_VQ = dict(embed_dim=8, n_embed=32, ch=16, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
                resolution=16, z_channels=8)

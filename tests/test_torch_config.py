@@ -12,6 +12,7 @@ from maua_style_tpu_torch import config
 from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.losses import LossConfig
 from maua_style_tpu_torch.models import init_params, select_model
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _options(parser):

@@ -13,6 +13,7 @@ import torch
 
 from maua_style_tpu.ops.correlation import correlation_pallas, correlation_xla
 from maua_style_tpu_torch.ops import correlation as C
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 CASES = [
     # (b, h, w, c, max_disp, stride)

@@ -13,6 +13,7 @@ from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.engine import checkpoint
 from maua_style_tpu_torch.losses import LossConfig
 from maua_style_tpu_torch.models import init_params, registry
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 NARROW = [8, "P", 16, "P", 16, 16, "P", 24, 24, "P", 24, "P"]
 

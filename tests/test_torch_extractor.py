@@ -21,6 +21,7 @@ from maua_style_tpu_torch.models.convert import (
     save_npz_params,
 )
 from maua_style_tpu_torch.models.registry import load_params
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 HIGHEST = jax.lax.Precision.HIGHEST
 

@@ -19,6 +19,7 @@ from maua_style_tpu.models.flownets.pwc import convert_pwc_torch
 from maua_style_tpu.models.flownets.spynet import convert_spynet_torch
 from maua_style_tpu_torch.models.flownets import PWCNet, SPyNet, backward_warp, convert
 from maua_style_tpu_torch.models.flownets.common import deconv
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _np_params(kind, seed):

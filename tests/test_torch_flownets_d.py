@@ -21,6 +21,7 @@ from maua_style_tpu.models.flownets import unflow as jax_unflow
 from maua_style_tpu.models.flownets.convert import convert_flow_checkpoint
 from maua_style_tpu_torch import flow
 from maua_style_tpu_torch.models.flownets import LiteFlowNet, UnFlow, convert, liteflownet, unflow
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 KINDS = ["unflow", "liteflownet"]
 _JAX = {"unflow": (JaxUnFlow, jax_unflow._layout), "liteflownet": (JaxLiteFlowNet, jax_liteflownet._layout)}

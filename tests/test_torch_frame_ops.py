@@ -21,6 +21,7 @@ from maua_style_tpu.ops import warp as jax_warp
 from maua_style_tpu_torch.io import flo, image, video
 from maua_style_tpu_torch.ops import frame_ops as fo
 from maua_style_tpu_torch.ops import resize, warp
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _nchw(x):

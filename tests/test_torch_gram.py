@@ -13,6 +13,7 @@ from maua_style_tpu.ops.gram import batch_gram as jax_batch_gram
 from maua_style_tpu.ops.gram import video_gram as jax_video_gram
 from maua_style_tpu.ops.pallas_gram import gram_nhwc, gram_pallas
 from maua_style_tpu_torch.ops import gram as G
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _nchw(x):

@@ -13,6 +13,7 @@ from maua_style_tpu import style as jax_style
 from maua_style_tpu.models import init_params, select_model
 from maua_style_tpu.models.convert import save_npz_params
 from maua_style_tpu_torch import style as torch_style
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 # the JAX package's pipelines/__init__ re-exports the img_img function
 # under the module's name

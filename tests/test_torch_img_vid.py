@@ -31,6 +31,7 @@ from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.losses import LossConfig
 from maua_style_tpu_torch.models import registry
 from maua_style_tpu_torch.models.convert import params_from_jax
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 jax_img_vid = importlib.import_module("maua_style_tpu.pipelines.img_vid")
 torch_img_vid = importlib.import_module("maua_style_tpu_torch.pipelines.img_vid")

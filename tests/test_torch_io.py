@@ -14,6 +14,7 @@ from maua_style_tpu.ops.resize import resize_bilinear_np as jax_resize
 from maua_style_tpu_torch import io as mio
 from maua_style_tpu_torch.ops.histogram import match_histogram
 from maua_style_tpu_torch.ops.resize import resize_bilinear_np, scale_shape
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _png(path, seed, h=20, w=28):

@@ -11,6 +11,7 @@ import torch
 
 from maua_style_tpu.engine.lbfgs import lbfgs as jax_lbfgs
 from maua_style_tpu_torch.engine.lbfgs import LBFGS, Adam
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _quadratic(seed, n, shift, with_b):

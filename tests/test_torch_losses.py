@@ -19,6 +19,7 @@ from maua_style_tpu_torch import losses as tl
 from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.models import Extractor, registry
 from maua_style_tpu_torch.models.convert import params_from_jax
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 NARROW = [8, 8, "P", 16, 16, "P", 24, 24, "P", 32, 32, "P", 32, "P"]
 HIGHEST = jax.lax.Precision.HIGHEST

@@ -26,6 +26,7 @@ from maua_style_tpu.pipelines import nca_gen as jax_gen
 from maua_style_tpu.pipelines import nca_train as jax_train
 from maua_style_tpu_torch.models import nca
 from maua_style_tpu_torch.pipelines import nca_gen, nca_train
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 TWO_LAYERS = ("relu1_1", "relu2_1")
 

@@ -34,6 +34,7 @@ from maua_style_tpu_torch.losses import LossConfig
 from maua_style_tpu_torch.models import init_params, select_model
 from maua_style_tpu_torch.models.convert import params_from_jax
 from maua_style_tpu_torch.ops import frame_ops
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
 def _vgg_np_params(seed=0):

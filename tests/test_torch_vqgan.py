@@ -19,6 +19,7 @@ import torch
 from maua_style_tpu.models import vqgan as jax_vq
 from maua_style_tpu.models.clip.convert import save_clip_npz
 from maua_style_tpu_torch.models import vqgan as vq
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 CONFIGS = {
     # the JAX engine test's config: GroupNorm falls back to gcd groups

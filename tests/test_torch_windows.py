@@ -10,6 +10,7 @@ from maua_style_tpu.engine import windows as jw
 from maua_style_tpu.utils import wrapping_indices as jax_wrapping_indices
 from maua_style_tpu_torch.engine import windows as tw
 from maua_style_tpu_torch.utils import wrapping_indices
+from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 CASES = [  # (pastiche frames, style lengths, gram_frame_window)
     (48, [24], 18),
