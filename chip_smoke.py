@@ -22,8 +22,11 @@ Phases, each of which must pass (nothing is caught and passed over):
    the largest view and the backward at C' = 9216 and at B = 18; and at
    the NCA trainer's ten inputs, VGG-16's five style layers of a batch of
    4 CA states of 128² and of the 128² style target, with the backward at
-   (4, 64, 16384) and (4, 512, 64); and at the similarity phase's ten,
-   VGG-19's five style layers at 256² and 512².
+   (4, 64, 16384) and (4, 512, 64); at the similarity phase's ten,
+   VGG-19's five style layers at 256² and 512²; and at every input phase
+   5's two vid_img runs hand K1, f32: the stacked first pass's (B, C, N)
+   at the chunk sizes the capacity model gives (512x288 and 1024x576),
+   the per-frame passes' (1, C, N) and the style captures'.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -47,10 +50,21 @@ Phases, each of which must pass (nothing is caught and passed over):
    8-frame 1024x576 video whose pattern moves a few pixels per frame, a 768²
    style, SPyNet + PWC flow, sizes 512 and 1024 with 80 and 40 iterations
    over 4 passes, --init random, VGG-19 f32 --precision highest, seeded
-   random weights.  Checks every artifact of the schema, finite .flo files
-   and loss logs, and the K1 and K2 launch counts; then SPyNet + PWC on the
-   GPU and on the CPU (TF32 off), and a torch.profiler window over one
-   later-pass 1024x576 frame (report only).  Then the same clip with
+   random weights.  The first pass of the first scale runs stacked
+   (``optimize_frames``) in the chunks ``frame_loop._auto_frame_batch``
+   gives (no --frame_batch); the chunk sizes at 512 and 1024, the first
+   pass's seconds and the later passes' s per frame are printed.  Checks
+   every artifact of the schema, finite .flo files and loss logs, the
+   chunks, every K1 input against phase 2's, and the K1 and K2 launch
+   counts (K1: 5 per iteration per chunk of the stacked pass, 5 per
+   iteration per frame of every other pass, 5 per style capture); then
+   SPyNet + PWC on the GPU and on the CPU (TF32 off), a torch.profiler
+   window over one later-pass 1024x576 frame (report only), and one chunk
+   of 4 frames at 1024x576, 5 iterations, TF32 off, stacked against
+   per-frame under ``cudnn.deterministic`` (Adam from the content init,
+   L-BFGS from the random init; bar: loss logs within rtol 1e-2, mean|Δ| of
+   the pastiches within 1e-2 of mean|p|) and the seconds of both.  Then
+   the same clip with
    ``--flow_models unflow,liteflownet`` at size 1024 only, 20 iterations
    over 2 passes (the same checks; K2 launches 1 a forward for UnFlow and
    5 for LiteFlowNet), and each of the two nets on the GPU against the
@@ -112,6 +126,13 @@ Phases, each of which must pass (nothing is caught and passed over):
    prev_warp --original_colors; then the 1024² img_img step twice from one
    seed, with and without ``torch.backends.cudnn.deterministic``, printing
    the first activation, Gram, loss or gradient that differs.
+7b. The capacity tuner (``tuning/max_sizes.py``), last because its probes
+   fill the card: measured peaks of VGG-19 (L-BFGS compact and two-loop,
+   Adam; f32 and bf16) and prune (Adam, f32) at 512², 1024² and 2048²
+   beside the estimate and its error, the constants fitted to them, the
+   measured search for VGG-19 (L-BFGS and Adam, f32) written to
+   chiprun_out/chip_smoke/, ``hbm_bytes()`` and the frame sizing; fails if
+   the allocator's count does not return to its start.
 8. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
@@ -149,13 +170,18 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def vgg_style_shapes(side: int) -> list[tuple[int, int]]:
-    """(C, N) of relu1_1..relu5_1 for a side x side image (floor pools)."""
+def hw_style_shapes(h: int, w: int) -> list[tuple[int, int]]:
+    """(C, N) of relu1_1..relu5_1 for an h x w image (floor pools)."""
     out = []
     for c in (64, 128, 256, 512, 512):
-        out.append((c, side * side))
-        side //= 2
+        out.append((c, h * w))
+        h, w = h // 2, w // 2
     return out
+
+
+def vgg_style_shapes(side: int) -> list[tuple[int, int]]:
+    """(C, N) of relu1_1..relu5_1 for a side x side image."""
+    return hw_style_shapes(side, side)
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 3) -> float:
@@ -793,6 +819,7 @@ def profile_step(results: dict) -> None:
 
 VID_FRAMES, VID_HW = 8, (576, 1024)
 VID_SIZES, VID_ITERS, VID_PASSES = (512, 1024), (80, 40), 4
+VID_STYLE_SIDE = 768
 
 
 def write_video(d: str, n_frames: int = VID_FRAMES) -> tuple[str, str]:
@@ -824,6 +851,85 @@ VD_FLOW, VD_SIZES, VD_ITERS, VD_PASSES = "unflow,liteflownet", (1024,), (20,), 2
 K2_PER_FORWARD = {"spynet": 0, "pwc": 5, "unflow": 1, "liteflownet": 5}
 
 
+def vid_hw(size: int) -> tuple[int, int]:
+    """The clip's (h, w) at a scale, as the frame loop sizes it."""
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    return tuple(scale_shape(VID_HW, size / max(VID_HW)))
+
+
+def vid_capacity_args():
+    """Phase 5's run args (VGG-19, L-BFGS history 100, f32, the card), for
+    the frame loop's capacity helpers."""
+    from maua_style_tpu_torch import config
+
+    return config.get_args(vid_argv("vid.npy", "style.png", OUT))
+
+
+def first_pass_chunks(size: int, args) -> list[int]:
+    """The stacked first pass's chunk sizes for the clip's frames at
+    ``size``: the frame loop's rule (the capacity model's batch, each chunk
+    rounded down to a power of two)."""
+    from maua_style_tpu_torch.pipelines.frame_loop import _auto_frame_batch
+
+    batch, left, chunks = _auto_frame_batch(vid_hw(size), 0, args), VID_FRAMES, []
+    while left:
+        chunks.append(1 << (min(batch, left).bit_length() - 1))
+        left -= chunks[-1]
+    return chunks
+
+
+def vid_gram_inputs(args, sizes, passes: int) -> set[tuple[int, int, int]]:
+    """The (B, C, N) inputs K1 gets on a vid_img run: each scale's style
+    capture (the 768² style scaled to the frame's area), the stacked first
+    pass's chunks at the first scale, and the per-frame later passes."""
+    import math
+
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    out = set()
+    for si, size in enumerate(sizes):
+        h, w = vid_hw(size)
+        factor = math.sqrt(h * w / (VID_STYLE_SIDE * VID_STYLE_SIDE))
+        out |= {(1, c, n) for c, n in hw_style_shapes(*scale_shape((VID_STYLE_SIDE, VID_STYLE_SIDE), factor))}
+        if si == 0:
+            out |= {(b, c, n) for b in set(first_pass_chunks(size, args)) for c, n in hw_style_shapes(h, w)}
+        if si > 0 or passes > 1:
+            out |= {(1, c, n) for c, n in hw_style_shapes(h, w)}
+    return out
+
+
+def vid_runs_gram_inputs() -> set[tuple[int, int, int]]:
+    """K1's inputs on phase 5's two vid_img runs."""
+    args = vid_capacity_args()
+    return vid_gram_inputs(args, VID_SIZES, VID_PASSES) | vid_gram_inputs(args, VD_SIZES, VD_PASSES)
+
+
+def check_vid_gram(results: dict) -> dict:
+    """K1 at every input phase 5's vid_img runs hand it (the stacked first
+    pass's (B, C, N), the per-frame passes' and the style captures'), f32,
+    with phase 2's bars and times."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for shape in sorted(vid_runs_gram_inputs()):
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), "stacked": shape[0] > 1, **measure_gram(f)}
+        rows.append(row)
+        print("vid_img gram", json.dumps(row))
+        del f
+    results["gram_vid_img"] = rows
+    stacked = [r for r in rows if r["stacked"]]
+    return {"ms": sum(r["kernel_ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows),
+            "stacked_ms": sum(r["kernel_ms"] for r in stacked), "stacked_library_ms": sum(r["library_ms"] for r in stacked),
+            "stacked_bound_ms": sum(r["bound_ms"] for r in stacked),
+            "stacked_slower_than_library": [r["shape"] for r in stacked if r["kernel_ms"] >= r["library_ms"]],
+            "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows), "shapes": len(rows)}
+
+
 def vid_argv(v_path: str, s_path: str, run_dir: str, flow_models: str = "spynet,pwc", sizes=VID_SIZES,
              iters=VID_ITERS, passes: int = VID_PASSES) -> list[str]:
     return [
@@ -845,11 +951,10 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
     import torch
     from PIL import Image
 
-    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch import losses, style
     from maua_style_tpu_torch.engine import StyleEngine
     from maua_style_tpu_torch.io.flo import read_flo
-    from maua_style_tpu_torch.ops.resize import scale_shape
-    from maua_style_tpu_torch.pipelines import flow_prepass
+    from maua_style_tpu_torch.pipelines import flow_prepass, frame_loop
 
     run_dir = os.path.join(OUT, key)
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -857,13 +962,12 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
     v_path, s_path = write_video(run_dir)
     argv = vid_argv(v_path, s_path, run_dir, flow_models, sizes, iters, passes)
 
-    frames, prepass = [], []
-    orig_frame, orig_pairs = StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs
+    frames, chunks, prepass, seen = [], [], [], set()
 
-    def timed_frame(self, content_u8, styles, num_iters, **kw):
+    def timed_frame(fn, self, content_u8, styles, num_iters, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = orig_frame(self, content_u8, styles, num_iters, **kw)
+        out = fn(self, content_u8, styles, num_iters, **kw)
         torch.cuda.synchronize()
         log = self.last_loss_log.cpu().numpy()
         frames.append({"hw": list(kw["out_hw"]), "mode": kw.get("init_mode"), "iters": num_iters,
@@ -871,26 +975,56 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
                        "first_total": float(log[0].sum()), "last_total": float(log[-1].sum())})
         return out
 
-    def timed_pairs(model, missing, flow_dir, args):
+    def timed_chunk(fn, self, contents_u8, styles, num_iters, **kw):
+        # the stacked first pass: one record per frame, each the chunk's
+        # seconds shared out
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        orig_pairs(model, missing, flow_dir, args)
+        out = fn(self, contents_u8, styles, num_iters, **kw)
+        torch.cuda.synchronize()
+        secs, logs = time.perf_counter() - t0, self.last_loss_log.cpu().numpy()
+        chunks.append({"frames": len(logs), "s": secs})
+        for log in logs:
+            frames.append({"hw": list(kw["out_hw"]), "mode": kw.get("init_mode"), "iters": num_iters,
+                           "s": secs / len(logs), "finite": bool(np.isfinite(log).all()),
+                           "first_total": float(log[0].sum()), "last_total": float(log[-1].sum()), "stacked": True})
+        return out
+
+    def timed_pairs(fn, model, missing, flow_dir, args):
+        t0 = time.perf_counter()
+        fn(model, missing, flow_dir, args)
         torch.cuda.synchronize()
         prepass.append({"pairs": len(missing), "wall_s": time.perf_counter() - t0})
 
-    StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs = timed_frame, timed_pairs
-    try:
+    def recording(fn, x, use_covariance=False):
+        seen.add((x.shape[0], x.shape[1], x.shape[2] * x.shape[3]))
+        return fn(x, use_covariance)
+
+    with patched((StyleEngine, "optimize_frame", timed_frame), (StyleEngine, "optimize_frames", timed_chunk),
+                 (flow_prepass, "_compute_flow_pairs", timed_pairs), (losses, "batch_gram", recording)):
         reset_counts()
         t0 = time.perf_counter()
         style.main(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
-    finally:
-        StyleEngine.optimize_frame, flow_prepass._compute_flow_pairs = orig_frame, orig_pairs
 
-    # K1: one style capture per scale (one style image, 5 layers) and 5
-    # Grams per iteration of every frame of every pass
+    # K1: one style capture per scale (one style image, 5 layers); 5 Grams
+    # per iteration of each chunk of the first scale's stacked first pass,
+    # and of every frame of every other pass
+    cap_args = vid_capacity_args()
+    first_chunks = first_pass_chunks(sizes[0], cap_args)
     per_frame = [it // passes for it in iters]
     want_gram = sum(5 + 5 * VID_FRAMES * passes * it for it in per_frame)
+    want_gram -= 5 * per_frame[0] * (VID_FRAMES - len(first_chunks))
+    for size in sizes:
+        hw = vid_hw(size)
+        print(f"{key} chunks at {size} ({hw[0]}x{hw[1]}): stacked first pass {first_pass_chunks(size, cap_args)}, "
+              f"chained {frame_loop._auto_chain_k(hw, cap_args)}")
+    if [c["frames"] for c in chunks] != first_chunks:
+        fail(f"{key}: first-pass chunks {[c['frames'] for c in chunks]} != the frame loop's rule {first_chunks}")
+    checked = vid_gram_inputs(cap_args, sizes, passes)
+    if seen != checked:
+        fail(f"{key}'s Gram inputs {sorted(seen)} != phase 2's {sorted(checked)}")
     # K2: each net's launches per forward (PWC and LiteFlowNet 5 levels,
     # UnFlow 1), forward and backward flow per chunk of 8 pairs; the pairs
     # are the frames' successors plus the wrap-around
@@ -926,7 +1060,7 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
     if len(frames) != per_scale * len(sizes) or not all(f["finite"] for f in frames):
         fail(f"{len(frames)} frames optimised (expected {per_scale * len(sizes)}) or a loss log not finite")
     for si, (size, it) in enumerate(zip(sizes, per_frame)):
-        hw = tuple(scale_shape(VID_HW, size / max(VID_HW)))
+        hw = vid_hw(size)
         for p in range(1, passes + 1):
             for n in names:
                 if png_hw(os.path.join(work, str(size), f"{p}_{n}.png")) != hw:
@@ -936,6 +1070,7 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
                 fail(f"scale {size} pass {p}: engine shapes {[r['hw'] for r in recs]}")
             secs = sum(r["s"] for r in recs)
             row = {"size": size, "hw": list(hw), "pass": p, "mode": recs[0]["mode"], "iters_per_frame": it,
+                   "stacked": bool(recs[0].get("stacked")), "pass_s": secs,
                    "s_per_frame": secs / len(recs), "ms_per_iter": secs * 1e3 / (it * len(recs)),
                    "first_total_frame1": recs[0]["first_total"], "last_total_frame1": recs[0]["last_total"]}
             scale_rows.append(row)
@@ -946,7 +1081,12 @@ def run_vid_img(results: dict, key: str = "vid_img", flow_models: str = "spynet,
     pre = prepass[0] if prepass else None
     if pre is None or pre["pairs"] != VID_FRAMES:
         fail(f"pre-pass record {prepass}")
-    summary = {"wall_s": wall, "launches": counts, "prepass_wall_s": pre["wall_s"],
+    first = scale_rows[0]
+    later = [r for r in scale_rows if not r["stacked"]]
+    print(f"{key}: stacked first pass at {first['size']}: {first['pass_s']:.3f} s for {VID_FRAMES} frames "
+          f"({first['s_per_frame']:.4f} s a frame); later passes: "
+          + ", ".join(f"{r['size']} pass {r['pass']} {r['s_per_frame']:.4f} s a frame" for r in later))
+    summary = {"wall_s": wall, "launches": counts, "first_pass_chunks": chunks, "prepass_wall_s": pre["wall_s"],
                "prepass_s_per_pair": pre["wall_s"] / pre["pairs"], "max_abs_flow": max_flow,
                "s_per_frame_all": sum(f["s"] for f in frames) / len(frames), "passes": scale_rows, "argv": argv}
     print(f"{key} summary", json.dumps({k: v for k, v in summary.items() if k not in ("passes", "argv")}))
@@ -1241,6 +1381,167 @@ def check_flow_against_cpu(results: dict, flow_models: str = "spynet,pwc") -> No
     if not max(rels) <= 1e-3:
         fail(f"flow {flow_models} GPU vs CPU: {rels} > 1e-3")
     results.setdefault("flow_vs_cpu", {})[flow_models] = {"rel": rels, "reliability_max_abs": rel_maps}
+
+
+STACK_B, STACK_ITERS = 4, 5
+
+
+def check_stacked_against_per_frame(results: dict) -> None:
+    """One chunk of B = 4 frames of the 1024x576 clip through the stacked
+    step (``optimize_frames``) and through ``optimize_frame`` one frame at a
+    time, 5 iterations, TF32 off, phase 5's engine (VGG-19 f32, seeded
+    random weights, the style's histogram matching), with Adam (lr 1) from
+    the content init and L-BFGS from phase 5's random init.  The
+    comparison runs under ``cudnn.deterministic`` (without it two runs of
+    one frame differ, ROADMAP Queue 3).  Bar, for both: every loss of
+    every frame and iteration within rtol 1e-2, and mean|Δ| of the
+    pastiches within 1e-2 of mean|p|.  Not max|Δ|, which is printed:
+    batched and batch-1 convolutions sum in other orders, and where a
+    gradient entry is float noise Adam's step is sign(g), a whole step at
+    lr 1 (phase-5-sized runs on the card: 12.9 at max|p| 266 after 5
+    iterations).  Then, with cuDNN's default algorithms and both shapes
+    warmed up, the seconds of the stacked chunk and of the 4 frames one by
+    one."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import config
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch.ops.frame_ops import style_hist_stats
+    from maua_style_tpu_torch.pipelines.common import build_engine, scale_styles
+
+    run_dir = os.path.join(OUT, "stacked")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    v_path, s_path = write_video(run_dir, STACK_B)
+    contents = np.load(v_path)
+    args = config.get_args(vid_argv(v_path, s_path, run_dir))
+    size = VID_SIZES[-1]
+    hw, content_scale = vid_hw(size), size / max(VID_HW)
+    style_big = mio.process_style_images(args)
+    styles = scale_styles(style_big, (1, *hw), args.style_scale)
+    kw = dict(out_hw=hw, content_scale=content_scale, blend_weights=args.style_blend_weights,
+              hist_stats=style_hist_stats(style_big[0], rng=np.random.default_rng(0)))
+    seeds = list(range(STACK_B))
+    rows = {}
+    for optimizer, init in (("adam", "content"), ("lbfgs", "random")):
+        args.optimizer = optimizer
+        engine = build_engine(args, size)
+
+        def stacked(iters):
+            out, _ = engine.optimize_frames(contents, styles, iters, init_mode=init, seeds=seeds, **kw)
+            return out, engine.last_loss_log.cpu().numpy()
+
+        def one_by_one(iters):
+            outs, logs = [], []
+            for i in seeds:
+                out, _ = engine.optimize_frame(contents[i], styles, iters, init_mode=init, seed=i, **kw)
+                outs.append(out)
+                logs.append(engine.last_loss_log.cpu().numpy())
+            return torch.stack(outs), np.stack(logs)
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            (p_s, log_s), (p_f, log_f) = stacked(STACK_ITERS), one_by_one(STACK_ITERS)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        d = (p_s - p_f).abs()
+        row = {"init": init, "max_abs_pastiche": float(d.max()), "max_abs_p": float(p_f.abs().max()),
+               "mean_abs_rel_pastiche": float(d.mean() / p_f.abs().mean()),
+               "log_rtol": float(np.max(np.abs(log_s - log_f) / np.maximum(np.abs(log_f), 1e-30)))}
+        secs = {}
+        for name, fn in (("stacked_s", stacked), ("per_frame_s", one_by_one)):
+            fn(1)  # warm-up: cuDNN's algorithms for these shapes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(STACK_ITERS)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        rows[optimizer] = {**row, **secs}
+        print(f"stacked vs per-frame, {optimizer} from {init}, B = {STACK_B}, {hw[0]}x{hw[1]}, {STACK_ITERS} iterations:",
+              json.dumps(rows[optimizer]))
+        del engine, p_s, p_f
+    shutil.rmtree(run_dir)
+    results["stacked_vs_per_frame"] = rows
+    for optimizer, row in rows.items():
+        if not (row["log_rtol"] <= 1e-2 and row["mean_abs_rel_pastiche"] <= 1e-2):
+            fail(f"stacked vs per-frame ({optimizer}): {row} past 1e-2")
+
+
+TUNER_SIZES = (512, 1024, 2048)
+
+
+def run_tuner(results: dict) -> None:
+    """The capacity tuner on the card: VGG-19's measured peaks (L-BFGS
+    compact and two-loop, Adam; f32 and bf16) and prune's (Adam, f32) at
+    512², 1024² and 2048², each beside ``estimate_step_bytes`` with the
+    module's constants and its relative error, and the constants
+    ``fit_constants`` fits to these peaks with their own error; then
+    ``probe_max_sizes`` for VGG-19 (L-BFGS and Adam, f32, the card's whole
+    memory as the budget), written to OUT, with its probes and seconds;
+    ``hbm_bytes()`` and the frame sizing at 1024x576 and 512x288.  Fails if
+    ``torch.cuda.memory_allocated()`` does not come back to its start (read
+    after a warm-up probe: a process's first cuBLAS call keeps its
+    workspace, 64 MiB on the card, for the process's life)."""
+    import torch
+
+    from maua_style_tpu_torch.tuning import max_sizes as ms
+
+    ms.measure_step_bytes("vgg19", "adam", 64)  # warm-up: the process's cuBLAS and cuDNN workspaces
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    cases = [("vgg19", opt, method, dtype) for dtype in ("float32", "bfloat16")
+             for opt, method in (("lbfgs", "compact"), ("lbfgs", "two_loop"), ("adam", "compact"))]
+    rows = []
+    for model, opt, method, dtype in [*cases, ("prune", "adam", "compact", "float32")]:
+        for size in TUNER_SIZES:
+            t0 = time.perf_counter()
+            got = ms.measure_step_bytes(model, opt, size, compute_dtype=dtype, lbfgs_method=method)
+            if got is None:
+                fail(f"tuner: {model} {opt} {dtype} at {size}² ran out of memory")
+            est = ms.estimate_step_bytes(model, opt, size, lbfgs_method=method, compute_dtype=dtype)
+            row = {"model": model, "optimizer": opt, "method": method, "dtype": dtype, "size": size, "measured": got,
+                   "estimate": est, "rel_err": (est - got) / got, "s": time.perf_counter() - t0}
+            rows.append(row)
+            print("tuner peak", json.dumps(row))
+    fitted = ms.fit_constants([(r["model"], r["optimizer"], r["method"], r["dtype"], r["size"], r["measured"])
+                               for r in rows])
+    table_constants = ms.CONSTANTS
+    ms.CONSTANTS = fitted
+    try:
+        fit_err = [(ms.estimate_step_bytes(r["model"], r["optimizer"], r["size"], lbfgs_method=r["method"],
+                                           compute_dtype=r["dtype"]) - r["measured"]) / r["measured"] for r in rows]
+    finally:
+        ms.CONSTANTS = table_constants
+    err = {"table_max_abs_rel_err": max(abs(r["rel_err"]) for r in rows),
+           "fitted_max_abs_rel_err": max(abs(e) for e in fit_err)}
+    print("tuner constants: table", json.dumps(table_constants), "fitted here", json.dumps(fitted), json.dumps(err))
+
+    probes = []
+
+    def counted(fn, *a, **kw):
+        probes.append(a[2])
+        return fn(*a, **kw)
+
+    t0 = time.perf_counter()
+    with patched((ms, "measure_step_bytes", counted)):
+        table = ms.probe_max_sizes(models=("vgg19",), optimizers=("lbfgs", "adam"), method="analysis",
+                                   compute_dtype="float32")
+    search = {"table": table, "probes": probes, "s": time.perf_counter() - t0}
+    with open(os.path.join(OUT, "max-sizes-vgg19-float32.json"), "w") as f:
+        json.dump(table, f, indent=2)
+    print("tuner search", json.dumps(search))
+    hbm = ms.hbm_bytes()
+    sizing = {f"{h}x{w} {opt}": {"frames_per_program": ms.frames_per_program("vgg19", opt, (h, w), hbm=hbm),
+                                 "chain_frames_per_program": ms.chain_frames_per_program("vgg19", opt, (h, w), hbm=hbm)}
+              for h, w in ((576, 1024), (288, 512)) for opt in ("lbfgs", "adam")}
+    print(f"tuner hbm_bytes() {hbm}, sizing (f32)", json.dumps(sizing))
+    torch.cuda.synchronize()
+    end = torch.cuda.memory_allocated()
+    results["tuner"] = {"peaks": rows, "constants": table_constants, "fitted": fitted, **err, "search": search,
+                        "hbm_bytes": hbm, "sizing": sizing, "allocated_start": start, "allocated_end": end}
+    if end != start:
+        fail(f"tuner: memory_allocated {end} after the probes, {start} before")
 
 
 def profile_vid_frame(results: dict) -> None:
@@ -2209,8 +2510,8 @@ def main() -> int:
         gram, corr = run_phases(results)
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
-        for d in ("vid_img", "vid_img_unflow_liteflownet", "img_vid", "flags", "nca", "clip_vqgan", "clip_vqgan_rn50",
-                  "clip_video_style", "similarity"):
+        for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
+                  "clip_vqgan_rn50", "clip_video_style", "similarity"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -2228,6 +2529,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram["img_vid_shapes"] = check_video_gram(results)
     gram["nca_shapes"] = check_nca_gram(results)
     gram["similarity_shapes"] = check_similarity_gram(results)
+    gram["vid_img_shapes"] = check_vid_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -2236,6 +2538,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     check_flow_against_cpu(results)
     profile_vid_frame(results)
     shutil.rmtree(os.path.join(OUT, "vid_img"))  # ~200 MB of frames and flow, checked above
+    check_stacked_against_per_frame(results)
     vid_d = run_vid_img(results, "vid_img_unflow_liteflownet", VD_FLOW, VD_SIZES, VD_ITERS, VD_PASSES)
     shutil.rmtree(os.path.join(OUT, "vid_img_unflow_liteflownet"))
     for nets in VD_FLOW.split(","):
@@ -2260,6 +2563,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     shutil.rmtree(os.path.join(OUT, "similarity"))
     drive_flags(results)
     check_determinism(results)
+    run_tuner(results)  # last: its probes take the card's memory to its limit
     # launches: each path's own count, read right after it ran from zero
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
              "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,

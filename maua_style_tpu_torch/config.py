@@ -71,7 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Proceed with deterministic random weights when a feature "
                              "checkpoint is missing (outputs are meaningless; tests/smoke only)")
     parser.add_argument("--download_weights", action="store_true",
-                        help="not ported yet (ROADMAP item 19); raises")
+                        help="Fetch missing checkpoints into modelzoo/ and convert them (needs network access)")
 
     # switches
     parser.add_argument("--original_colors", action="store_true")
@@ -209,7 +209,9 @@ def postprocess(args) -> argparse.Namespace:
         os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"
 
     if getattr(args, "download_weights", False):
-        raise NotImplementedError("--download_weights is not ported yet (ROADMAP item 19)")
+        from .io.download import ensure_weights, names_for_args
+
+        ensure_weights(names_for_args(args))
 
     args.image_sizes = [int(s) for s in str(args.image_sizes).split(",")] if not isinstance(args.image_sizes, list) else args.image_sizes
     args.num_iters = [int(s) for s in str(args.num_iters).split(",")] if not isinstance(args.num_iters, list) else args.num_iters

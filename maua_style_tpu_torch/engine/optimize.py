@@ -20,11 +20,13 @@ then store bf16, as in the JAX package's serving config).
 The vid_img frame path (``prep_frame``, ``optimize_frame``,
 ``optimize_frames``, ``optimize_frame_chain``) keeps every frame on the
 device: a uint8 frame goes up, the pastiche chains to the next frame as a
-tensor, and a uint8 image comes back.  ``optimize_frames`` and
-``optimize_frame_chain`` keep the JAX package's signatures and results,
-but where JAX runs one ``vmap`` / ``lax.scan`` program (to save TPU
-executable loads and round trips) they loop over ``optimize_frame`` on the
-host.
+tensor, and a uint8 image comes back.  ``optimize_frames`` runs a chunk of
+independent frames as one stacked step per iteration, as JAX's ``vmap``
+does: one extractor forward and backward over the stack, each style
+layer's Grams in one kernel launch, and per-frame content targets, losses,
+gradient normalisation and optimiser state.  ``optimize_frame_chain``
+keeps JAX's signature and results, but where JAX runs one ``lax.scan``
+program it loops over ``optimize_frame`` on the host.
 
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
 circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
@@ -50,6 +52,7 @@ from ..losses import (
     capture_style_targets,
     capture_style_video_targets,
     capture_temporal_targets,
+    evaluate_frame_losses,
     evaluate_losses,
 )
 from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
@@ -185,15 +188,22 @@ class StyleEngine:
 
     # -- the optimisation loop ---------------------------------------------
 
-    def _make_optimizer(self) -> LBFGS | Adam:
+    def _make_optimizer(self, frames: bool = False) -> LBFGS | Adam:
+        """``frames``: the pastiche's leading dim stacks independent frames,
+        each with its own L-BFGS state (Adam is elementwise)."""
         if self.optimizer_name == "lbfgs":
             # bf16 activations also store the L-BFGS histories in bf16
             hdt = torch.bfloat16 if self.compute_dtype == torch.bfloat16 else None
-            return LBFGS(self.learning_rate, self.lbfgs_history, method=self.lbfgs_method, history_dtype=hdt)
+            return LBFGS(self.learning_rate, self.lbfgs_history, method=self.lbfgs_method, history_dtype=hdt,
+                         frames=frames)
         return Adam(self.learning_rate)
 
-    def _run(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None):
+    def _run(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False):
         """``n_iters`` steps; returns (pastiche, opt_state, (n_iters, n_losses) log).
+
+        ``frames``: the pastiche stacks independent frames (vid_img's first
+        pass, ``optimize_frames``); the losses are each frame's own
+        (``evaluate_frame_losses``) and the log is (n_iters, B, n_losses).
 
         img_vid's window runners (JAX optimize.py:235-341): ``mask``, a
         (T, 1, 1, 1) tensor, multiplies the gradient before the optimiser
@@ -219,7 +229,7 @@ class StyleEngine:
             if fixed is not None:
                 acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in acts.items()}
                 full = torch.cat([front, p, end])
-            total, per = evaluate_losses(full, acts, targets, cfg, scale)
+            total, per = (evaluate_frame_losses if frames else evaluate_losses)(full, acts, targets, cfg, scale)
             (grad,) = torch.autograd.grad(total, p)
             grad = grad.float() if mask is None else grad.float() * mask
             upd, opt_state = opt.update(grad, opt_state)
@@ -227,7 +237,7 @@ class StyleEngine:
             logs.append(per.detach())
         if fixed is not None:
             p = torch.cat([front, p, end])
-        log = torch.stack(logs) if logs else p.new_zeros((0, len(cfg.loss_names())))
+        log = torch.stack(logs) if logs else p.new_zeros((0, *p.shape[:frames], len(cfg.loss_names())))
         return p, opt_state, log
 
     def _iterate(self, p, opt, st, targets, scale, num_iters, done, after_chunk, *, save_iter, print_iter,
@@ -478,16 +488,7 @@ class StyleEngine:
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
-        u8 = _on(content_u8, dev)
-        if content_scale is not None:
-            # scale_factor resampling keeps the host path's scale quirk
-            if tuple(scale_shape(tuple(u8.shape[:2]), content_scale)) != out_hw:
-                raise ValueError(f"content_scale {content_scale} does not map {tuple(u8.shape[:2])} to {out_hw}")
-            c = preprocess_u8(u8, scale_factor=content_scale)
-        else:
-            c = preprocess_u8(u8, size=out_hw)
-        if hist_stats is not None:
-            c = match_histogram_device(c, *hist_stats)
+        c = self._frame_content(_on(content_u8, dev), out_hw, content_scale, hist_stats)
         targets = {"style": self.style_targets(styles, blend_weights),
                    "content": capture_content_targets(self._extract, c, self.loss_cfg)}
         # the strength scale leaves the temporal term out, as the JAX frame
@@ -508,8 +509,7 @@ class StyleEngine:
         if init_mode == "content":
             p0 = c
         elif init_mode == "random":
-            gen = torch.Generator(device=dev).manual_seed(int(seed))
-            p0 = 0.001 * torch.randn((1, 3, *out_hw), generator=gen, device=dev)
+            p0 = self._noise(seed, out_hw)
         elif init_mode == "warp_prev":
             p0 = grid_sample(prev, wmap)
         elif init_mode == "blend":
@@ -540,24 +540,50 @@ class StyleEngine:
         hist_stats=None,
         seeds: Sequence[int] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Independent frames (first pass, ``content`` / ``random`` init):
-        (B, H, W, 3) u8 -> (pastiches (B, 1, 3, h, w), displays (B, h, w, 3)
-        u8), one ``optimize_frame`` each; ``last_loss_log`` is
+        """Independent frames (first pass, ``content`` / ``random`` init)
+        as one stacked step per iteration (JAX's ``vmap`` of the frame
+        program): (B, H, W, 3) u8 -> (pastiches (B, 1, 3, h, w), displays
+        (B, h, w, 3) u8), both on the device.  Each frame is preprocessed,
+        histogram-matched and given its content target on its own, its
+        random init drawn from its own seed as ``optimize_frame`` draws it,
+        and its losses, gradient normalisation and optimiser state are its
+        own; the style targets are shared.  ``last_loss_log`` is
         (B, num_iters, n_losses)."""
         if init_mode not in ("content", "random"):
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
-        seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
-        outs, disps, logs = [], [], []
-        for u8, seed in zip(contents_u8, seeds):
-            out, disp = self.optimize_frame(
-                u8, styles, num_iters, out_hw=out_hw, content_scale=content_scale, blend_weights=blend_weights,
-                init_mode=init_mode, hist_stats=hist_stats, seed=seed,
-            )
-            outs.append(out)
-            disps.append(disp)
-            logs.append(self.last_loss_log)
-        self.last_loss_log = torch.stack(logs)
-        return torch.stack(outs), torch.stack(disps)
+        out_hw = tuple(int(v) for v in out_hw)
+        blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
+        u8 = _on(np.asarray(contents_u8), self.device)  # the chunk goes up at once
+        seeds = list(seeds) if seeds is not None else list(range(u8.shape[0]))
+        c = torch.cat([self._frame_content(f, out_hw, content_scale, hist_stats) for f in u8])
+        targets = {"style": self.style_targets(styles, blend_weights),
+                   "content": capture_content_targets(self._extract, c, self.loss_cfg)}
+        # one frame's shapes, as optimize_frame's scale sees them
+        scale = dict(self._strength_scale({"style": targets["style"],
+                                           "content": {l: t[:1] for l, t in targets["content"].items()}}))
+        p0 = c if init_mode == "content" else torch.cat([self._noise(seed, out_hw) for seed in seeds])
+        opt = self._make_optimizer(frames=True)
+        p, _, log = self._run(p0, opt, opt.init(p0), targets, scale, int(num_iters), frames=True)
+        outs = [match_histogram_device(f, *hist_stats) if hist_stats is not None else f for f in p.split(1)]
+        self.last_loss_log = log.transpose(0, 1)
+        return torch.stack(outs), torch.stack([deprocess_to_u8(o) for o in outs])
+
+    def _frame_content(self, u8: torch.Tensor, out_hw: tuple[int, int], content_scale, hist_stats) -> torch.Tensor:
+        """One (H, W, 3) u8 frame on the device -> its (1, 3, h, w) content
+        image, preprocessed, resized and histogram-matched."""
+        if content_scale is not None:
+            # scale_factor resampling keeps the host path's scale quirk
+            if tuple(scale_shape(tuple(u8.shape[:2]), content_scale)) != out_hw:
+                raise ValueError(f"content_scale {content_scale} does not map {tuple(u8.shape[:2])} to {out_hw}")
+            c = preprocess_u8(u8, scale_factor=content_scale)
+        else:
+            c = preprocess_u8(u8, size=out_hw)
+        return match_histogram_device(c, *hist_stats) if hist_stats is not None else c
+
+    def _noise(self, seed: int, out_hw: tuple[int, int]) -> torch.Tensor:
+        """The random init: 0.001 N(0, 1) from a generator seeded ``seed``."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return 0.001 * torch.randn((1, 3, *out_hw), generator=gen, device=self.device)
 
     def optimize_frame_chain(
         self,

@@ -16,6 +16,8 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
   to the window target, times ``video_style_factor`` (loss.py:84-91,
   160-170).
 - tv: anisotropic L1 total variation (loss.py:224-233).
+- ``evaluate_frame_losses``: vid_img's stacked first pass, a batch of
+  independent frames, each frame's values its own ``evaluate_losses``.
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
@@ -178,11 +180,13 @@ def evaluate_losses(
     targets: dict[str, Any],
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
+    grams: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Total loss + per-loss values (ordering = cfg.loss_names()).
 
     ``strength_scale`` optionally rescales per-loss strengths
-    (--normalize_weights, reference optim.py:176-178).
+    (--normalize_weights, reference optim.py:176-178).  ``grams``: the
+    style layers' normalised Grams of ``acts``, where the caller has them.
     """
     b = pastiche.shape[0]
     scale = strength_scale or {}
@@ -207,10 +211,10 @@ def evaluate_losses(
         v = zero
         a = acts[l]
         if l in style_targets:
-            grams = batch_gram(a, cfg.use_covariance) / math.prod(a.shape[1:])  # (B, C, C)
+            g = grams[l] if grams is not None else _norm_gram(a, cfg)  # (B, C, C)
             tgt = style_targets[l]
             for i in range(b):
-                v = v + _term(_mse(grams[i], tgt), strength, b, cfg.normalize_gradients)
+                v = v + _term(_mse(g[i], tgt), strength, b, cfg.normalize_gradients)
         # the dynamic term, where the target is a window of b frames
         # (image styles are skipped, loss.py:165-166)
         if cfg.video_style_factor > 0 and l in video_targets and video_targets[l].shape[0] == b * a.shape[1]:
@@ -237,6 +241,36 @@ def evaluate_losses(
     return per.sum(), per
 
 
+def _norm_gram(a: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
+    return batch_gram(a, cfg.use_covariance) / math.prod(a.shape[1:])
+
+
+def evaluate_frame_losses(
+    pastiche: torch.Tensor,
+    acts: dict[str, torch.Tensor],
+    targets: dict[str, Any],
+    cfg: LossConfig,
+    strength_scale: dict[str, float] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Independent frames stacked on the batch axis, each with its own
+    content (and temporal) target and one shared style target: frame i's
+    values are ``evaluate_losses`` of frame i alone (its terms' gradients
+    normalised on their own), and each style layer's Grams are one
+    ``batch_gram`` over the stack.  Returns (sum over frames, (B, n_losses))."""
+    grams = {l: _norm_gram(acts[l], cfg) for l in cfg.style_layers if l in targets.get("style", {})}
+    totals, pers = [], []
+    for i in range(pastiche.shape[0]):
+        one = dict(targets)
+        one["content"] = {l: t[i : i + 1] for l, t in targets.get("content", {}).items()}
+        if targets.get("temporal") is not None:
+            one["temporal"] = {k: t[i : i + 1] for k, t in targets["temporal"].items()}
+        total, per = evaluate_losses(pastiche[i : i + 1], {l: a[i : i + 1] for l, a in acts.items()}, one, cfg,
+                                     strength_scale, {l: g[i : i + 1] for l, g in grams.items()})
+        totals.append(total)
+        pers.append(per)
+    return torch.stack(totals).sum(), torch.stack(pers)
+
+
 __all__ = [
     "LossConfig",
     "scale_gradients",
@@ -246,4 +280,5 @@ __all__ = [
     "capture_style_video_targets",
     "capture_temporal_targets",
     "evaluate_losses",
+    "evaluate_frame_losses",
 ]

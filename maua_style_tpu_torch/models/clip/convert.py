@@ -14,6 +14,11 @@ maua_style_tpu/models/clip/convert.py), ViT and ResNet backbones.
   resolution from the positional embedding).
 - ``clip_from_state_dict``: an OpenAI state dict (or the converted JAX
   tree) -> a ``CLIP`` or ``CLIPResNet`` module, through ``load_state_dict``.
+- ``clip_tree_from_state_dict`` / ``save_clip_npz`` / ``main``: an OpenAI
+  ``.pt`` -> the JAX package's tree and ``.npz``, the file its converter
+  writes from the same checkpoint::
+
+    python -m maua_style_tpu_torch.models.clip.convert ViT-B-32.pt modelzoo/clip_vitb32.npz
 """
 
 from __future__ import annotations
@@ -202,5 +207,120 @@ def load_clip_npz(path: str) -> dict:
     return listify(root)
 
 
+def clip_tree_from_state_dict(sd) -> dict:
+    """An OpenAI state dict, ViT or ResNet (``visual.attnpool.*`` keys) ->
+    the JAX package's ``{"visual", "text"}`` tree of float32 arrays, as its
+    converters build it (JAX convert.py:21-137, resnet.py:160-207)."""
+
+    def a(key: str) -> np.ndarray:
+        return _tensor(sd[key]).numpy()
+
+    def hwio(key: str) -> np.ndarray:
+        return np.transpose(a(key), (2, 3, 1, 0))  # OIHW -> HWIO
+
+    def ln(prefix: str) -> dict:
+        return {"g": a(prefix + ".weight"), "b": a(prefix + ".bias")}
+
+    def blocks(prefix: str) -> list:
+        depth = prefix.count(".") + 2
+        n = len({k.split(".")[depth] for k in sd if k.startswith(prefix + ".resblocks.")})
+        return [{
+            "ln_1": ln(f"{prefix}.resblocks.{i}.ln_1"),
+            "ln_2": ln(f"{prefix}.resblocks.{i}.ln_2"),
+            "attn": {
+                "in_w": a(f"{prefix}.resblocks.{i}.attn.in_proj_weight"),
+                "in_b": a(f"{prefix}.resblocks.{i}.attn.in_proj_bias"),
+                "out_w": a(f"{prefix}.resblocks.{i}.attn.out_proj.weight"),
+                "out_b": a(f"{prefix}.resblocks.{i}.attn.out_proj.bias"),
+            },
+            **{f"mlp_{m}_{t}": a(f"{prefix}.resblocks.{i}.mlp.c_{m}.{w}")
+               for m in ("fc", "proj") for t, w in (("w", "weight"), ("b", "bias"))},
+        } for i in range(n)]
+
+    text = {
+        "token_embedding": a("token_embedding.weight"),
+        "positional_embedding": a("positional_embedding"),
+        "ln_final": ln("ln_final"),
+        "text_projection": a("text_projection"),
+        "blocks": blocks("transformer"),
+    }
+    if not any(k.startswith("visual.attnpool.") for k in sd):
+        visual = {
+            "conv1_w": hwio("visual.conv1.weight"),
+            "class_embedding": a("visual.class_embedding"),
+            "positional_embedding": a("visual.positional_embedding"),
+            "ln_pre": ln("visual.ln_pre"),
+            "ln_post": ln("visual.ln_post"),
+            "proj": a("visual.proj"),
+            "blocks": blocks("visual.transformer"),
+        }
+        return {"visual": visual, "text": text}
+
+    def conv(prefix: str) -> dict:
+        return {"w": hwio(prefix + ".weight")}
+
+    def bn(prefix: str) -> dict:
+        return {"g": a(prefix + ".weight"), "b": a(prefix + ".bias"), "mean": a(prefix + ".running_mean"),
+                "var": a(prefix + ".running_var")}
+
+    visual: dict = {}
+    for i in (1, 2, 3):
+        visual[f"conv{i}"], visual[f"bn{i}"] = conv(f"visual.conv{i}"), bn(f"visual.bn{i}")
+    for stage in range(1, 5):
+        layer, bi = [], 0
+        while f"visual.layer{stage}.{bi}.conv1.weight" in sd:
+            pre = f"visual.layer{stage}.{bi}"
+            blk = {f"{kind}{i}": fn(f"{pre}.{kind}{i}") for i in (1, 2, 3) for kind, fn in (("conv", conv), ("bn", bn))}
+            # the shortcut's conv and BatchNorm: OpenAI's downsample.0 / .1,
+            # or .1 / .2 where the pool holds index 0
+            if pre + ".downsample.0.weight" in sd:
+                blk["downsample"] = {"conv": conv(pre + ".downsample.0"), "bn": bn(pre + ".downsample.1")}
+            elif pre + ".downsample.1.weight" in sd:
+                blk["downsample"] = {"conv": conv(pre + ".downsample.1"), "bn": bn(pre + ".downsample.2")}
+            layer.append(blk)
+            bi += 1
+        visual[f"layer{stage}"] = layer
+    visual["attnpool"] = {"positional_embedding": a("visual.attnpool.positional_embedding"),
+                          **{f"{n}_{t}": a(f"visual.attnpool.{n}_proj.{w}")
+                             for n in ("q", "k", "v", "c") for t, w in (("w", "weight"), ("b", "bias"))}}
+    return {"visual": visual, "text": text}
+
+
+def save_clip_npz(tree: dict, path: str) -> None:
+    """A parameter tree -> the JAX package's ``.npz`` (``a/b/0/c`` keys)."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}/{k}" if prefix else k, v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(f"{prefix}/{i}", v)
+        else:
+            flat[prefix] = np.asarray(node)
+
+    walk("", tree)
+    np.savez(path, **flat)
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Convert an OpenAI CLIP .pt to .npz")
+    ap.add_argument("src")
+    ap.add_argument("dst")
+    args = ap.parse_args(argv)
+    obj = torch.load(args.src, map_location="cpu", weights_only=False)
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    save_clip_npz(clip_tree_from_state_dict(sd), args.dst)
+    kind = "ResNet" if any(k.startswith("visual.attnpool.") for k in sd) else "ViT"
+    print(f"wrote {args.dst} ({kind} backbone)")
+
+
+if __name__ == "__main__":
+    main()
+
+
 __all__ = ["clip_params_from_jax", "clip_from_state_dict", "config_from_state_dict", "resnet_config_from_state_dict",
-           "load_clip_npz"]
+           "load_clip_npz", "clip_tree_from_state_dict", "save_clip_npz"]

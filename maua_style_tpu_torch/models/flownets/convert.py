@@ -17,6 +17,10 @@ pwc.py:134, ``convert_spynet_torch`` at spynet.py:84, and
   unused 4-D weight of its shape in the state dict's insertion order
   (kernel-4 entries, the deconvs, read as ``(in, out, k, k)``), and a
   layer left without one fails with the list of unmatched layers.
+- ``main``: a sniklaus checkpoint -> ``modelzoo/{name}.npz`` in the JAX
+  layout, the file the JAX converter writes from it::
+
+    python -m maua_style_tpu_torch.models.flownets.convert unflow network-css.pytorch
 """
 
 from __future__ import annotations
@@ -158,4 +162,35 @@ def flow_params_from_torch(name: str, state_dict) -> dict[str, torch.Tensor]:
     return sd
 
 
-__all__ = ["flow_params_from_jax", "flow_params_from_torch", "assign_by_shape", "load_npz"]
+def save_npz(name: str, sd: dict[str, torch.Tensor], path: str) -> None:
+    """The port module's state dict -> the JAX layout's ``.npz`` (the
+    inverse of ``flow_params_from_jax``)."""
+    flat = {}
+    for layer, _cin, _cout, _k in _layout(name):
+        flat[f"{layer}/w"] = sd[_key(layer) + ".weight"].numpy().transpose(2, 3, 1, 0)
+        flat[f"{layer}/b"] = sd[_key(layer) + ".bias"].numpy()
+    np.savez(path, **flat)
+
+
+def main(argv=None) -> None:
+    import argparse
+    import os
+
+    ap = argparse.ArgumentParser(description="Convert a sniklaus flow-net checkpoint to .npz")
+    ap.add_argument("name", choices=["spynet", "pwc", "unflow", "liteflownet"])
+    ap.add_argument("checkpoint", help="torch .pth/.pytorch checkpoint path")
+    ap.add_argument("output", nargs="?", default=None, help="output .npz (default modelzoo/{name}.npz)")
+    args = ap.parse_args(argv)
+
+    sd = flow_params_from_torch(args.name, torch.load(args.checkpoint, map_location="cpu", weights_only=True))
+    out = args.output or f"modelzoo/{args.name}.npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    save_npz(args.name, sd, out)
+    print(f"wrote {out} ({len(sd) // 2} layers)")
+
+
+if __name__ == "__main__":
+    main()
+
+
+__all__ = ["flow_params_from_jax", "flow_params_from_torch", "assign_by_shape", "load_npz", "save_npz"]

@@ -14,9 +14,11 @@ Two inner paths:
   call; the pastiche stays a tensor on the device from frame to frame, only
   uint8 images cross to the host, and PNGs are written by a background
   thread.  First-pass frames with a chain-free init go through
-  ``optimize_frames``, chained frames through ``optimize_frame_chain``, in
-  chunks of ``--frame_batch`` (0: one chunk per pass).  The chunking only
-  groups the log lines: the results are the per-frame path's.
+  ``optimize_frames``, one stacked step per chunk of frames; chained frames
+  through ``optimize_frame_chain``.  The chunks are ``--frame_batch`` long,
+  or else sized by the capacity model (``tuning.max_sizes``) for the
+  scale, optimizer, dtype and device memory, as in the JAX package; the
+  chained chunks only group the log lines.
 - **host path** (``--original_colors``): per-frame host orchestration.
 """
 
@@ -62,12 +64,53 @@ class _AsyncSaver:
         self._pool.shutdown()
 
 
-def _chunk_len(args, n: int) -> int:
-    """Frames per engine call: ``--frame_batch`` when set, else the whole
-    pass (the JAX package sizes it from a TPU capacity model, which is
-    ROADMAP Slice G)."""
-    requested = int(getattr(args, "frame_batch", 0) or 0)
-    return requested if requested > 0 else max(n, 1)
+def _capacity_kwargs(args) -> dict:
+    """The engine configuration the capacity estimator needs, from the run
+    args (JAX frame_loop.py:312-320), and the memory of the run's device."""
+    from ..tuning.max_sizes import hbm_bytes
+
+    return dict(
+        lbfgs_history=int(getattr(args, "lbfgs_num_correction", 100) or 100),
+        lbfgs_method=getattr(args, "lbfgs_method", "compact") or "compact",
+        compute_dtype=getattr(args, "compute_dtype", "float32") or "float32",
+        hbm=hbm_bytes(getattr(args, "device", None)),
+    )
+
+
+def _auto_frame_batch(out_hw: tuple[int, int], requested: int, args=None) -> int:
+    """Frames per stacked step: the requested ``--frame_batch``, or the
+    capacity model's answer for this scale, optimizer, dtype and device
+    (``tuning.max_sizes.frames_per_program``), rounded down to a power of
+    two (JAX frame_loop.py:323-339)."""
+    if requested and requested > 0:
+        b = requested
+    else:
+        from ..tuning.max_sizes import frames_per_program
+
+        b = frames_per_program(
+            getattr(args, "model_file", "vgg19") or "vgg19",
+            getattr(args, "optimizer", "lbfgs") or "lbfgs",
+            out_hw,
+            **_capacity_kwargs(args),
+        )
+    return 1 << (b.bit_length() - 1)
+
+
+def _auto_chain_k(out_hw: tuple[int, int], args) -> int:
+    """Chained chunk length: the requested ``--frame_batch``, or the
+    capacity model's stacked-inputs answer
+    (``tuning.max_sizes.chain_frames_per_program``; JAX frame_loop.py:342-356)."""
+    requested = getattr(args, "frame_batch", 0)
+    if requested and requested > 0:
+        return int(requested)
+    from ..tuning.max_sizes import chain_frames_per_program
+
+    return chain_frames_per_program(
+        getattr(args, "model_file", "vgg19") or "vgg19",
+        getattr(args, "optimizer", "lbfgs") or "lbfgs",
+        out_hw,
+        **_capacity_kwargs(args),
+    )
 
 
 def run_video_style_passes(
@@ -176,7 +219,7 @@ def run_video_style_passes(
                     frames + frames[: 11 if args.loop else 1],
                     frames[1:] + frames[: 10 if args.loop else 1],
                 ))
-                chain_k = _chunk_len(args, len(pairs))
+                chain_k = _auto_chain_k(out_hw, args)
                 n = -1
                 while n + 1 < len(pairs):
                     n += 1
@@ -312,8 +355,9 @@ def _device_first_pass_batched(
     output_dir, current_size, pass_n, frames, num_iters, saver,
 ):
     """Every unrendered frame of the first pass through
-    ``engine.optimize_frames``, in chunks; per-frame random-init seeds are
-    the sequential loop's ``seed + n``."""
+    ``engine.optimize_frames``, one stacked step per chunk (JAX
+    frame_loop.py:359-412); per-frame random-init seeds are the sequential
+    loop's ``seed + n``."""
     n_frames = len(frames)
     this_frames = frames[1:] + frames[: 10 if args.loop else 1]
     todo: dict[str, tuple[int, str]] = {}
@@ -326,13 +370,19 @@ def _device_first_pass_batched(
         todo[out_path] = (n, this_frame)
 
     items = sorted(todo.items(), key=lambda kv: kv[1][0])
-    batch = _chunk_len(args, len(items))
+    # JAX multiplies the auto batch by a "frames" mesh axis here; that waits
+    # for multi-GPU runs (ROADMAP item 18)
+    batch = _auto_frame_batch(out_hw, getattr(args, "frame_batch", 0), args)
     iters = max(num_iters // args.passes_per_scale, 1)
     seed0 = int(getattr(args, "seed", 0) or 0)
     init_mode = "random" if args.init == "random" else "content"
 
-    for pos in range(0, len(items), batch):
-        chunk = items[pos : pos + batch]
+    pos = 0
+    while pos < len(items):
+        chunk_size = min(batch, len(items) - pos)
+        chunk_size = 1 << (chunk_size.bit_length() - 1)  # power-of-two chunks, as JAX's
+        chunk = items[pos : pos + chunk_size]
+        pos += chunk_size
         names = ", ".join(name(tf) for _, (_, tf) in chunk)
         print(f"Optimizing... size: {current_size}, pass: {pass_n + 1}, frames: {names}")
         stack = np.stack([mio.load_u8(tf) for _, (_, tf) in chunk])

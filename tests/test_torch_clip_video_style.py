@@ -15,7 +15,10 @@ the JAX package's on the CPU.
 - One real port run, ``--gpu c``, with a tiny VQGAN and CLIP and SPyNet:
   every pass's artifacts of every frame.
 
-The flow nets read numpy-made weights from a modelzoo npz on both sides."""
+The flow nets read numpy-made weights from a modelzoo npz on both sides;
+each test empties both packages' flow-net caches first, since JAX's caches a
+net by its name alone (another test's random SPyNet would otherwise stand in
+for this test's weights)."""
 
 import glob
 
@@ -24,8 +27,9 @@ import pytest
 from PIL import Image
 
 from maua_style_tpu import config as jax_config
+from maua_style_tpu import flow as jax_flow
 from maua_style_tpu.pipelines import clip_video_style as jax_cvs
-from maua_style_tpu_torch import config
+from maua_style_tpu_torch import config, flow
 from maua_style_tpu_torch.models import vqgan as vq
 from maua_style_tpu_torch.models.clip import model as clip_model
 from maua_style_tpu_torch.pipelines import clip_video_style as cvs
@@ -35,7 +39,9 @@ from test_torch_flownets_d import _write_modelzoo
 from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
 
-def _inputs(d, n_frames):
+def _inputs(d, n_frames, monkeypatch):
+    monkeypatch.setattr(jax_flow, "_MODEL_CACHE", {})
+    monkeypatch.setattr(flow, "_MODEL_CACHE", {})
     rng = np.random.default_rng(0)
     np.save(str(d / "vid.npy"), rng.integers(0, 255, (n_frames, 24, 24, 3), dtype=np.uint8))
     Image.fromarray(rng.integers(0, 255, (20, 20, 3), dtype=np.uint8)).save(str(d / "style.png"))
@@ -70,7 +76,7 @@ class _Recorder:
 def test_engine_calls_match_jax(tmp_path, monkeypatch):
     """Two scales (12, 16), two passes, three frames, ``--init prev_warp``
     (the first pass warps the flow into the init)."""
-    _inputs(tmp_path, 3)
+    _inputs(tmp_path, 3, monkeypatch)
     monkeypatch.chdir(tmp_path)
     jax_rec, port_rec = _Recorder(), _Recorder()
     monkeypatch.setattr(jax_cvs, "get_engine", lambda d, b: jax_rec)
@@ -115,7 +121,7 @@ def test_boundary_conversions_equal():
 def test_port_run_on_the_cpu(tmp_path, monkeypatch):
     """``--gpu c``, a tiny VQGAN and CLIP (seeded random weights), SPyNet,
     3 frames of 24², size 16, 2 passes of 4 iterations."""
-    _inputs(tmp_path, 3)
+    _inputs(tmp_path, 3, monkeypatch)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(vq, "load_vqgan", lambda d, s=0: vq.init_vqgan(vq.VQGANConfig(**TINY_VQ), 0))
     monkeypatch.setattr(cv, "_load_clip", lambda b: clip_model.init_clip(clip_model.CLIPConfig(**TINY_CLIP)))

@@ -146,11 +146,16 @@ def test_chain_and_batch_runners_equal_per_frame_calls():
         logs.append(te.last_loss_log)
     assert torch.equal(chain, prev) and torch.equal(chain_log, torch.stack(logs))
 
+    # the batch runner is one stacked step (batched convolutions take other
+    # oneDNN paths than batch-1 ones): within 1e-4 of the per-frame calls
+    # (measured: 8.8e-6 at |p| <= 3.0, the logs 7e-8 relative)
     outs, disps = te.optimize_frames(contents, [style], 3, init_mode="random", seeds=[5, 6, 7], **common)
-    assert outs.shape == (3, 1, 3, 24, 24) and te.last_loss_log.shape[:2] == (3, 3)
+    batch_log = te.last_loss_log
+    assert outs.shape == (3, 1, 3, 24, 24) and batch_log.shape[:2] == (3, 3)
     for i in range(3):
         out, disp = te.optimize_frame(contents[i], [style], 3, init_mode="random", seed=5 + i, **common)
-        assert torch.equal(outs[i], out) and torch.equal(disps[i], disp)
+        assert float((outs[i] - out).abs().max()) <= 1e-4 and torch.equal(disps[i], disp)
+        torch.testing.assert_close(batch_log[i], te.last_loss_log, rtol=1e-4, atol=0)
     with pytest.raises(ValueError):
         te.optimize_frames(contents, [style], 1, init_mode="blend", **common)
 
@@ -218,6 +223,27 @@ def _cli_argv(out):
 _PAIRS = [("00001", "00002"), ("00002", "00003"), ("00003", "00001")]
 
 
+def _write_flow_artifacts(d):
+    """The frames and random flow artifacts of both runs ("jax", "torch"),
+    so both CLIs skip the pre-pass as a resumed run does."""
+    rng = np.random.default_rng(5)
+    frames = np.load(d / "vid.npy")
+    flows = {}
+    for a, b in _PAIRS:
+        flows[f"forward_{a}_{b}"] = (rng.standard_normal((24, 24, 2)) * 1.5).astype(np.float32)
+        flows[f"backward_{b}_{a}"] = (rng.standard_normal((24, 24, 2)) * 1.5).astype(np.float32)
+    for out in ("jax", "torch"):
+        work = d / out / "vid_style"
+        os.makedirs(work / "frames")
+        os.makedirs(work / "flow")
+        for i, f in enumerate(frames):
+            Image.fromarray(f).save(work / "frames" / f"{i + 1:05d}.png")
+        for stem, fl in flows.items():
+            flo.write_flo(fl, str(work / "flow" / f"{stem}.flo"))
+            Image.fromarray(np.random.default_rng(len(stem)).integers(0, 256, (24, 24), dtype=np.uint8)).save(
+                work / "flow" / f"{stem}.png")
+
+
 def test_vid_img_cli_flow_prepass_matches_jax(tmp_path, monkeypatch):
     """The CLI's first half: frame extraction and the SPyNet + PWC pre-pass
     of both packages (the pre-pass thread started and joined as the CLI
@@ -253,22 +279,7 @@ def test_vid_img_cli_matches_jax(tmp_path, monkeypatch):
     pass, the blend + warped temporal second pass, the frame PNGs and the
     muxed stack."""
     _cli_setup(tmp_path, monkeypatch)
-    rng = np.random.default_rng(5)
-    frames = np.load(tmp_path / "vid.npy")
-    flows = {}
-    for a, b in _PAIRS:
-        flows[f"forward_{a}_{b}"] = (rng.standard_normal((24, 24, 2)) * 1.5).astype(np.float32)
-        flows[f"backward_{b}_{a}"] = (rng.standard_normal((24, 24, 2)) * 1.5).astype(np.float32)
-    for out in ("jax", "torch"):
-        work = tmp_path / out / "vid_style"
-        os.makedirs(work / "frames")
-        os.makedirs(work / "flow")
-        for i, f in enumerate(frames):
-            Image.fromarray(f).save(work / "frames" / f"{i + 1:05d}.png")
-        for stem, fl in flows.items():
-            flo.write_flo(fl, str(work / "flow" / f"{stem}.flo"))
-            Image.fromarray(np.random.default_rng(len(stem)).integers(0, 256, (24, 24), dtype=np.uint8)).save(
-                work / "flow" / f"{stem}.png")
+    _write_flow_artifacts(tmp_path)
 
     jax_style.main(_cli_argv("jax"))
     torch_style.main(_cli_argv("torch"))
