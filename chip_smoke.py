@@ -26,7 +26,9 @@ Phases, each of which must pass (nothing is caught and passed over):
    VGG-19's five style layers at 256² and 512²; and at every input phase
    5's two vid_img runs hand K1, f32: the stacked first pass's (B, C, N)
    at the chunk sizes the capacity model gives (512x288 and 1024x576),
-   the per-frame passes' (1, C, N) and the style captures'.
+   the per-frame passes' (1, C, N) and the style captures'; and at the
+   mesh phases' new inputs, the two bands of a 1024² pastiche, (1, C, N/2),
+   and a frames:2 half of the frames phase's chunk, (4, C, N) at 512x288.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -120,6 +122,30 @@ Phases, each of which must pass (nothing is caught and passed over):
    the caches, grids and artifacts, K1's launches against img_img's
    formula summed over the jobs with each input among phase 2's (which
    holds K1 at its ten shapes), K2 0; wall s per job.
+6g. Fidelity: ``maua_style_tpu_torch.fidelity`` on a 256→512 img_img (20
+   and 10 L-BFGS iterations at the CLI's settings, VGG-19 f32 with seeded
+   random weights, TF32 off, ``cudnn.deterministic``) against the same run
+   on the CPU (``--gpu c``): the SSIM and whether it clears the tool's
+   0.98, report only (the card's run scores 0.3637: L-BFGS at lr 1 turns
+   float noise into another image, PERF.md); both loss logs' largest
+   relative difference per iteration; K1's launches and inputs.
+6h. The "space" mesh: img_img's ``StyleEngine.optimize`` at 1024² (VGG-19
+   f32, L-BFGS history 100) unsharded and on a space:2 mesh of ``[cuda:0,
+   cuda:0]``: under ``cudnn.deterministic`` one step's loss terms (rtol
+   1e-5) and gradient (1e-4), and 10 iterations from the content init at
+   lr 0.1 (the first two iterations' total losses within rtol 1e-5, every
+   iteration's within rtol 1e-4, mean|Δ| within 1e-2 of mean|p|), K1's
+   launches (10 an iteration on two bands, 5 unsharded) and inputs; then
+   ms/iter and peak memory of both in turns at lr 1.  With
+   two or more cards also the CLI with ``--gpu 0,1`` at 2048² and each
+   card's peak; on one card it prints that this part did not run and why.
+6i. The "frames" mesh: ``optimize_frames`` on 8 frames at 512x288 (phase
+   5's engine, L-BFGS from its random init) unsharded and on a frames:2
+   mesh of ``[cuda:0, cuda:0]``: over 5 iterations phase 5's stacked bars
+   (loss logs within rtol 1e-2, mean|Δ| within 1e-2 of mean|p|), K1's
+   launches and inputs; the same readings over the pass's 20 iterations,
+   report only (L-BFGS drifts further); the seconds of both at 20
+   iterations in turns.
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -129,10 +155,13 @@ Phases, each of which must pass (nothing is caught and passed over):
 7b. The capacity tuner (``tuning/max_sizes.py``), last because its probes
    fill the card: measured peaks of VGG-19 (L-BFGS compact and two-loop,
    Adam; f32 and bf16) and prune (Adam, f32) at 512², 1024² and 2048²
-   beside the estimate and its error, the constants fitted to them, the
-   measured search for VGG-19 (L-BFGS and Adam, f32) written to
-   chiprun_out/chip_smoke/, ``hbm_bytes()`` and the frame sizing; fails if
-   the allocator's count does not return to its start.
+   beside the estimate and its error, with the allocator's reserved peak
+   and the free memory, the constants fitted to them, the measured search
+   for VGG-19 (L-BFGS and Adam, f32; its budget the free memory at its
+   start) written to chiprun_out/chip_smoke/, one img_img scale at the
+   L-BFGS safe size in this process (beside the fresh-process table's),
+   ``hbm_bytes()`` and the frame sizing; fails if that scale runs out of
+   memory or the allocator's count does not return to its start.
 8. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
@@ -1474,12 +1503,17 @@ TUNER_SIZES = (512, 1024, 2048)
 def run_tuner(results: dict) -> None:
     """The capacity tuner on the card: VGG-19's measured peaks (L-BFGS
     compact and two-loop, Adam; f32 and bf16) and prune's (Adam, f32) at
-    512², 1024² and 2048², each beside ``estimate_step_bytes`` with the
+    512², 1024² and 2048² (``measure_step``: what tensors took and what the
+    allocator reserved), each beside ``estimate_step_bytes`` with the
     module's constants and its relative error, and the constants
     ``fit_constants`` fits to these peaks with their own error; then
-    ``probe_max_sizes`` for VGG-19 (L-BFGS and Adam, f32, the card's whole
-    memory as the budget), written to OUT, with its probes and seconds;
-    ``hbm_bytes()`` and the frame sizing at 1024x576 and 512x288.  Fails if
+    ``probe_max_sizes`` for VGG-19 (L-BFGS and Adam, f32, the budget the
+    card's free memory at the search's start less the allocator's reserve,
+    ``search_budget_bytes``), written to OUT, with its probes and seconds;
+    the size it calls safe for L-BFGS run as one img_img scale (the style
+    CLI, 2 iterations) in this same process, beside the fresh-process
+    table's; ``hbm_bytes()`` and the frame sizing at 1024x576 and 512x288.
+    Fails if the scale runs out of memory, or if
     ``torch.cuda.memory_allocated()`` does not come back to its start (read
     after a warm-up probe: a process's first cuBLAS call keeps its
     workspace, 64 MiB on the card, for the process's life)."""
@@ -1496,11 +1530,13 @@ def run_tuner(results: dict) -> None:
     for model, opt, method, dtype in [*cases, ("prune", "adam", "compact", "float32")]:
         for size in TUNER_SIZES:
             t0 = time.perf_counter()
-            got = ms.measure_step_bytes(model, opt, size, compute_dtype=dtype, lbfgs_method=method)
-            if got is None:
+            probe = ms.measure_step(model, opt, size, compute_dtype=dtype, lbfgs_method=method)
+            if probe is None:
                 fail(f"tuner: {model} {opt} {dtype} at {size}² ran out of memory")
+            got = probe["allocated"]
             est = ms.estimate_step_bytes(model, opt, size, lbfgs_method=method, compute_dtype=dtype)
             row = {"model": model, "optimizer": opt, "method": method, "dtype": dtype, "size": size, "measured": got,
+                   "reserved": probe["reserved"], "free_before": probe["free"],
                    "estimate": est, "rel_err": (est - got) / got, "s": time.perf_counter() - t0}
             rows.append(row)
             print("tuner peak", json.dumps(row))
@@ -1524,13 +1560,16 @@ def run_tuner(results: dict) -> None:
         return fn(*a, **kw)
 
     t0 = time.perf_counter()
+    budget = ms.search_budget_bytes()
     with patched((ms, "measure_step_bytes", counted)):
         table = ms.probe_max_sizes(models=("vgg19",), optimizers=("lbfgs", "adam"), method="analysis",
-                                   compute_dtype="float32")
-    search = {"table": table, "probes": probes, "s": time.perf_counter() - t0}
+                                   compute_dtype="float32", budget_bytes=budget)
+    search = {"table": table, "probes": probes, "s": time.perf_counter() - t0, "budget_bytes": budget,
+              "total_memory": torch.cuda.get_device_properties(0).total_memory}
     with open(os.path.join(OUT, "max-sizes-vgg19-float32.json"), "w") as f:
         json.dump(table, f, indent=2)
     print("tuner search", json.dumps(search))
+    search["scale"] = run_tuner_scale(table["vgg19,lbfgs,1"]["safe_max_size"])
     hbm = ms.hbm_bytes()
     sizing = {f"{h}x{w} {opt}": {"frames_per_program": ms.frames_per_program("vgg19", opt, (h, w), hbm=hbm),
                                  "chain_frames_per_program": ms.chain_frames_per_program("vgg19", opt, (h, w), hbm=hbm)}
@@ -1542,6 +1581,40 @@ def run_tuner(results: dict) -> None:
                         "hbm_bytes": hbm, "sizing": sizing, "allocated_start": start, "allocated_end": end}
     if end != start:
         fail(f"tuner: memory_allocated {end} after the probes, {start} before")
+
+
+def run_tuner_scale(safe: int) -> dict:
+    """One img_img scale at the search's safe size for VGG-19 f32 L-BFGS
+    (history 100), in this process after every other phase: the style CLI
+    at ``--image_sizes safe --num_iters 2`` on the main path's images.
+    Prints the size beside the fresh-process table's; fails if it runs out
+    of memory."""
+    import torch
+
+    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch.tuning import max_sizes as ms
+
+    with open(os.path.join(ms.TABLE_DIR, "max-sizes-79GB-1chip.json")) as f:
+        fresh = json.load(f)["vgg19,lbfgs,1"]["safe_max_size"]
+    run_dir = os.path.join(OUT, "tuner_scale")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        style.main(["--content", c_path, "--style", s_path, "--output_dir", run_dir, "--image_sizes", str(safe),
+                    "--num_iters", "2", "--optimizer", "lbfgs", "--lbfgs_num_correction", "100",
+                    "--precision", "highest", "--allow_random_weights", "--seed", "0", "--gpu", "0",
+                    "--scaling_args", os.path.join(run_dir, "none.json")])
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"tuner: the safe size {safe} (VGG-19 f32 L-BFGS) ran out of memory in this process: {str(e)[:300]}")
+    out = {"safe_in_process": safe, "safe_fresh_process_table": fresh, "s": time.perf_counter() - t0,
+           "peak_allocated": torch.cuda.max_memory_allocated(), "peak_reserved": torch.cuda.max_memory_reserved()}
+    shutil.rmtree(run_dir)
+    print(f"tuner: one img_img scale at the in-process safe size {safe} (the fresh-process table: {fresh}) ran",
+          json.dumps(out))
+    return out
 
 
 def profile_vid_frame(results: dict) -> None:
@@ -2477,6 +2550,379 @@ def run_similarity(results: dict) -> dict[str, int]:
     return counts
 
 
+# the mesh phases: a space:2 img_img at 1024², a frames:2 first
+# pass of phase 5's first scale, and the fidelity run
+SPACE_SIDE, SPACE_ITERS, SPACE_BANDS, SPACE_LR = 1024, 10, 2, 0.1
+FRAMES_B, FRAMES_SIZE = 8, VID_SIZES[0]
+FID_SIZES, FID_ITERS = (256, 512), (20, 10)
+
+
+def mesh_gram_shapes() -> list[tuple[int, int, int]]:
+    """K1's new inputs on the mesh phases: the space phase's two bands of a
+    1024² pastiche, (1, C, N/2) at each style layer, and a frames:2 half of
+    the frames phase's chunk, (4, C, N) at 512x288.  Their other inputs
+    (the style captures, the unsharded runs) are phase 2's 1024² shapes
+    and phase 5's."""
+    h, w = vid_hw(FRAMES_SIZE)
+    return ([(1, c, n // SPACE_BANDS) for c, n in vgg_style_shapes(SPACE_SIDE)]
+            + [(FRAMES_B // 2, c, n) for c, n in hw_style_shapes(h, w)])
+
+
+def check_mesh_gram(results: dict) -> dict:
+    """K1 at the mesh phases' new inputs, f32, with phase 2's bars and
+    times."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    for shape in mesh_gram_shapes():
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), **measure_gram(f)}
+        rows.append(row)
+        print("mesh gram", json.dumps(row))
+        del f
+    results["gram_mesh"] = rows
+    bands = rows[:STYLE_LAYERS]
+    return {"ms": sum(r["kernel_ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+            "library_ms": sum(r["library_ms"] for r in rows), "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bands_ms": sum(r["kernel_ms"] for r in bands), "bands_library_ms": sum(r["library_ms"] for r in bands),
+            "bands_bound_ms": sum(r["bound_ms"] for r in bands),
+            "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows), "shapes": len(rows)}
+
+
+def gram_inputs_into(seen: set):
+    """A ``patched`` wrapper of ``ops.gram._GramFn.apply`` that records each
+    (B, C, N) input K1 gets."""
+    def wrapper(fn, f):
+        seen.add(tuple(f.shape))
+        return fn(f)
+
+    return wrapper
+
+
+def run_fidelity(results: dict) -> dict[str, int]:
+    """``maua_style_tpu_torch.fidelity`` on the card: a 256→512 img_img at
+    the CLI's settings (L-BFGS, lr 1, 20 and 10 iterations, VGG-19 with
+    seeded random weights, f32, TF32 off, ``cudnn.deterministic``) scored
+    by SSIM against the same run on the CPU (``--gpu c``, same seed and
+    weights).  The SSIM and the tool's verdict against its 0.98 are report
+    only: L-BFGS without a line search turns float noise into another image
+    within a few iterations (on the CPU alone, the same run unbanded and on
+    two bands, sums reordered by 1e-7, scores 0.84), and the card's f32
+    follows f64 where the CPU's flips max-pool near-ties (PERF.md).  Prints
+    the SSIM, the loss logs' largest relative difference per scale and
+    iteration, K1's launches (5 an iteration and 5 a style capture) and
+    inputs (among phase 2's); fails if these are off or a log is not
+    finite."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import fidelity, style
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.pipelines import img_img as img_img_module
+
+    run_dir = os.path.join(OUT, "fidelity")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    want_gram = sum(STYLE_LAYERS * (it + 1) for it in FID_ITERS)
+    seen = set()
+
+    def argv(out, gpu):
+        return ["--content", c_path, "--style", s_path, "--output_dir", os.path.join(run_dir, out),
+                "--image_sizes", ",".join(map(str, FID_SIZES)), "--num_iters", ",".join(map(str, FID_ITERS)),
+                "--seed", "0", "--gpu", gpu, "--allow_random_weights", "--precision", "highest"]
+
+    engines, secs = [], {}
+
+    def recorded(fn, args, current_size=None):
+        engines.append(fn(args, current_size))
+        return engines[-1]
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with patched((img_img_module, "build_engine", recorded)):
+            t0 = time.perf_counter()
+            style.main(argv("cpu", "c"))  # the reference image
+            secs["cpu_s"] = time.perf_counter() - t0
+            ref = os.path.join(run_dir, "cpu", f"content_style_{FID_SIZES[-1]}.png")
+            with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+                reset_counts()
+                t0 = time.perf_counter()
+                verdict = fidelity.main(["--reference_output", ref, "--", *argv("gpu", "0")])
+                torch.cuda.synchronize()
+                secs["gpu_s"] = time.perf_counter() - t0
+                counts = read_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    cpu_logs = [e.last_loss_log for e in engines[: len(FID_SIZES)]]
+    gpu_logs = [e.last_loss_log for e in engines[len(FID_SIZES):]]
+    log_rtol = [np.max(np.abs(g - c) / np.maximum(np.abs(c), 1e-30), axis=1).tolist()
+                for g, c in zip(gpu_logs, cpu_logs)]
+    results["fidelity"] = {"ssim": verdict["ssim"], "threshold": verdict["threshold"], "pass": verdict["pass"],
+                           **secs, "launches": counts, "log_rtol_by_iteration": log_rtol,
+                           "total_loss": {"cpu": [l.sum(axis=1).tolist() for l in cpu_logs],
+                                          "gpu": [l.sum(axis=1).tolist() for l in gpu_logs]}}
+    print(f"fidelity (L-BFGS at the CLI's settings, report only): card against CPU at {FID_SIZES[-1]}², SSIM "
+          f"{verdict['ssim']} (the tool's bar {verdict['threshold']}: {'passes' if verdict['pass'] else 'fails'}); "
+          f"the loss logs' largest relative difference per iteration {json.dumps(log_rtol)}; CPU "
+          f"{secs['cpu_s']:.1f} s, card {secs['gpu_s']:.1f} s, launches {counts}")
+    shutil.rmtree(run_dir)
+    if counts != {"gram": want_gram, "correlation": 0}:
+        fail(f"fidelity launches {counts} != gram {want_gram}, correlation 0")
+    if not all(np.isfinite(l).all() for l in cpu_logs + gpu_logs) or not np.isfinite(verdict["ssim"]):
+        fail(f"fidelity: a loss log or the SSIM ({verdict['ssim']}) is not finite")
+    if seen - set(similarity_gram_shapes()):
+        fail(f"fidelity's Gram inputs {sorted(seen)} not among phase 2's {sorted(similarity_gram_shapes())}")
+    return counts
+
+
+def run_space(results: dict) -> dict[str, int]:
+    """img_img's ``StyleEngine.optimize`` at 1024² (VGG-19 f32, the default
+    layers, L-BFGS history 100, TF32 off) unsharded and on a space:2 mesh of
+    ``[cuda:0, cuda:0]`` (two bands of 512 rows), under
+    ``cudnn.deterministic``:
+
+    - one step from the content init: every loss term within rtol 1e-5 and
+      the gradient within 1e-4 of its max;
+    - 10 iterations from the content init at lr 0.1 (at the CLI's lr 1,
+      a 1e-7 perturbation of the init moved the loss log by 5.7e22 and
+      the pastiche by 7% mean in 10 iterations, PERF.md): the first two
+      iterations' total losses (the init's, and after the scaled gradient
+      step, before L-BFGS's first curvature pair) within rtol 1e-5, every
+      iteration's within rtol 1e-4 (measured 3.4e-5), and mean|Δ| of the
+      pastiches within 1e-2 of mean|p| (measured 0.62%; a 1e-7 perturbed
+      init alone drifted 2.2%; max|Δ| printed);
+    - K1's launches (5 a style capture; 5 an iteration unsharded, 10 on two
+      bands) and inputs (among phase 2's).
+
+    Then, with cuDNN's default algorithms, lr 1 and warmed up, ms/iter and
+    the peak memory of both in turns (unsharded, space:2, space:2,
+    unsharded).
+    With two or more cards, the CLI with ``--gpu 0,1`` at 2048² and each
+    card's peak."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw
+    from maua_style_tpu_torch.losses import LossConfig, evaluate_banded_losses, evaluate_losses
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.resize import resize_bilinear_np
+    from maua_style_tpu_torch.parallel import build_mesh, spatial
+
+    run_dir = os.path.join(OUT, "space")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    content = mio.preprocess(c_path)
+    style = resize_bilinear_np(mio.preprocess(s_path), size=(SPACE_SIDE, SPACE_SIDE))
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    dev = torch.device("cuda", 0)
+    mesh = build_mesh([dev] * SPACE_BANDS, [("space", SPACE_BANDS)])
+    chunks = []
+
+    def engine_on(m, lr=1.0):
+        return StyleEngine(spec, params, LossConfig(), optimizer="lbfgs", learning_rate=lr, lbfgs_history=100,
+                           precision="highest", device=dev, mesh=m)
+
+    def timed_run(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) * 1e3 / a[5])
+        return out
+
+    def run(m, iters=SPACE_ITERS, lr=1.0):
+        engine = engine_on(m, lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        chunks.clear()
+        with patched((StyleEngine, "_run", timed_run)):
+            reset_counts()
+            out = engine.optimize(content, [style], content, iters)
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        return out, engine.last_loss_log, counts, chunks[-1], peak
+
+    def apart(p, log, p_ref, log_ref):
+        # the total loss: at the content init the content term starts at 0
+        rtol = np.abs(log.sum(axis=1) - log_ref.sum(axis=1)) / np.abs(log_ref.sum(axis=1))
+        return {"log_rtol": float(rtol.max()), "log_rtol_by_iteration": rtol.tolist(),
+                "mean_abs_rel_pastiche": float(np.abs(p - p_ref).mean() / np.abs(p_ref).mean()),
+                "max_abs_pastiche": float(np.abs(p - p_ref).max())}
+
+    seen: set = set()
+    torch.backends.cudnn.deterministic = True
+    try:
+        # one step: the loss terms and the gradient
+        engine = engine_on(None)
+        cfg = engine.loss_cfg
+        targets = {"content": engine.content_targets(content), "style": engine.style_targets([style], [1.0])}
+        x = to_nchw(content, dev).requires_grad_(True)
+        total, per = evaluate_losses(x, engine._extract(x, cfg.all_layers), targets, cfg)
+        (grad,) = torch.autograd.grad(total, x)
+        heights = spatial.band_rows(SPACE_SIDE, SPACE_BANDS, 16)
+        bands = [b.requires_grad_(True) for b in spatial.split_rows(x.detach(), heights, mesh.devices, 3, SPACE_SIDE)]
+        level = spatial.level_heights(heights, 8)  # relu4_2, after three pools
+        banded = {"style": targets["style"], "content": {
+            l: spatial.split_rows(t, level, mesh.devices, t.shape[1], t.shape[3]) for l, t in targets["content"].items()}}
+        btotal, bper = evaluate_banded_losses(bands, engine._extract_bands(bands, cfg.all_layers), banded, cfg)
+        bgrad = spatial.gather_rows(torch.autograd.grad(btotal, bands), heights, dev, 3, SPACE_SIDE)
+        step = {"loss_rtol": float(((bper - per).abs() / per.abs().clamp(min=1e-30)).max()),
+                "grad_rel": float((bgrad - grad).abs().max() / grad.abs().max())}
+        del engine, targets, x, grad, bands, banded, bgrad
+        # 10 iterations
+        p0, log0, counts0, _, _ = run(None, lr=SPACE_LR)
+        with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+            p2, log2, counts2, _, _ = run(mesh, lr=SPACE_LR)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    parity = apart(p2, log2, p0, log0)
+    bars = {"log_rtol": 1e-4, "mean_abs_rel_pastiche": 1e-2}
+    run(None, 1), run(mesh, 1)  # warm-up: cuDNN's algorithms for both shapes
+    timing = {"unsharded": [], "space2": []}
+    for key in ("unsharded", "space2", "space2", "unsharded"):
+        _, _, _, ms_iter, peak = run(mesh if key == "space2" else None)
+        timing[key].append({"ms_per_iter": ms_iter, "peak_bytes": peak})
+    summary = {"one_step": step, "space2_vs_unsharded": parity, "bars": bars,
+               "launches_unsharded": counts0, "launches_space2": counts2, "max_abs_p": float(np.abs(p0).max()),
+               "timing": timing, "bands": SPACE_BANDS, "side": SPACE_SIDE, "iters": SPACE_ITERS}
+    print(f"space: {SPACE_SIDE}² on {SPACE_BANDS} bands of one card against unsharded, L-BFGS from the content init"
+          f" at lr {SPACE_LR}, {SPACE_ITERS} iterations:", json.dumps(summary))
+    if torch.cuda.device_count() >= 2:
+        summary["two_cards"] = run_space_two_cards(run_dir, c_path, s_path)
+    else:
+        summary["two_cards"] = f"not run: {torch.cuda.device_count()} CUDA device visible (it needs two cards)"
+        print(f"space: the --gpu 0,1 CLI at 2048² did not run: {summary['two_cards']}")
+    results["space"] = summary
+    shutil.rmtree(run_dir)
+    want0 = {"gram": STYLE_LAYERS * (SPACE_ITERS + 1), "correlation": 0}
+    want2 = {"gram": STYLE_LAYERS * (SPACE_BANDS * SPACE_ITERS + 1), "correlation": 0}
+    if counts0 != want0 or counts2 != want2:
+        fail(f"space launches: unsharded {counts0} (expected {want0}), space:2 {counts2} (expected {want2})")
+    checked = {(1, c, n) for c, n in vgg_style_shapes(SPACE_SIDE)} | set(mesh_gram_shapes())
+    if seen - checked:
+        fail(f"space's Gram inputs {sorted(seen - checked)} not among phase 2's")
+    if not (step["loss_rtol"] <= 1e-5 and step["grad_rel"] <= 1e-4):
+        fail(f"space: one step on two bands against unsharded: {step}")
+    if not max(parity["log_rtol_by_iteration"][:2]) <= 1e-5:
+        fail(f"space:2 against unsharded: the first two iterations' losses {parity['log_rtol_by_iteration'][:2]} past 1e-5")
+    if not (np.isfinite(p2).all() and all(parity[k] <= bars[k] for k in bars)):
+        fail(f"space:2 against unsharded: {parity} past {bars}")
+    return counts2
+
+
+def run_space_two_cards(run_dir: str, c_path: str, s_path: str) -> dict:
+    """The style CLI with ``--gpu 0,1`` at 2048² (5 L-BFGS iterations): each
+    card's peak memory."""
+    import torch
+
+    from maua_style_tpu_torch import style
+
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats(i)
+    t0 = time.perf_counter()
+    style.main(["--content", c_path, "--style", s_path, "--output_dir", os.path.join(run_dir, "cli"),
+                "--image_sizes", "2048", "--num_iters", "5", "--gpu", "0,1", "--allow_random_weights", "--seed", "0"])
+    out = {"wall_s": time.perf_counter() - t0, "peak_bytes": [torch.cuda.max_memory_allocated(i) for i in range(2)]}
+    print("space: --gpu 0,1 at 2048²", json.dumps(out))
+    return out
+
+
+def run_frames(results: dict) -> dict[str, int]:
+    """``optimize_frames`` on 8 frames of phase 5's clip at 512x288 (phase
+    5's engine: VGG-19 f32, L-BFGS history 100, its random init, 20
+    iterations, the style's histogram statistics) unsharded and on a
+    frames:2 mesh of ``[cuda:0, cuda:0]`` (two stacked steps of 4 frames,
+    enqueued in turn): under ``cudnn.deterministic`` and over phase 5's
+    stacked-against-per-frame check's 5 iterations, its bars (every loss
+    within rtol 1e-2, mean|Δ| within 1e-2 of mean|p|), K1's launches and
+    inputs; then, warmed up, the seconds of both at 20 iterations in
+    turns."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import config
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.frame_ops import style_hist_stats
+    from maua_style_tpu_torch.pipelines.common import build_engine, scale_styles
+
+    run_dir = os.path.join(OUT, "frames")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    v_path, s_path = write_video(run_dir, FRAMES_B)
+    contents = np.load(v_path)
+    args = config.get_args(vid_argv(v_path, s_path, run_dir))
+    hw = vid_hw(FRAMES_SIZE)
+    style_big = mio.process_style_images(args)
+    styles = scale_styles(style_big, (1, *hw), args.style_scale)
+    iters = VID_ITERS[0] // VID_PASSES
+    kw = dict(out_hw=hw, content_scale=FRAMES_SIZE / max(VID_HW), blend_weights=args.style_blend_weights,
+              hist_stats=style_hist_stats(style_big[0], rng=np.random.default_rng(0)), init_mode="random",
+              seeds=list(range(FRAMES_B)))
+    engines = {"unsharded": build_engine(args, FRAMES_SIZE)}
+    args.devices, args.mesh_shape = [torch.device("cuda", 0)] * 2, [("frames", 2)]
+    engines["frames2"] = build_engine(args, FRAMES_SIZE)
+    if engines["frames2"].mesh is None or engines["frames2"].mesh.size("frames") != 2:
+        fail(f"frames: build_engine gave mesh {engines['frames2'].mesh}")
+
+    def run(key, n):
+        reset_counts()
+        p, _ = engines[key].optimize_frames(contents, styles, n, **kw)
+        torch.cuda.synchronize()
+        return p, engines[key].last_loss_log.cpu().numpy(), read_counts()
+
+    seen: set = set()
+    torch.backends.cudnn.deterministic = True
+    try:
+        p0, log0, counts0 = run("unsharded", STACK_ITERS)
+        with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+            p2, log2, counts2 = run("frames2", STACK_ITERS)
+        long = [run(key, iters)[:2] for key in ("unsharded", "frames2")]
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def apart(p, log, p_ref, log_ref):
+        d = (p - p_ref).abs()
+        return {"log_rtol": float(np.max(np.abs(log - log_ref) / np.maximum(np.abs(log_ref), 1e-30))),
+                "mean_abs_rel_pastiche": float(d.mean() / p_ref.abs().mean()), "max_abs_pastiche": float(d.max()),
+                "max_abs_p": float(p_ref.abs().max())}
+
+    row = {**apart(p2, log2, p0, log0), "launches_unsharded": counts0, "launches_frames2": counts2,
+           f"report_only_{iters}_iters": apart(*long[1], *long[0])}
+    secs = {"unsharded": [], "frames2": []}
+    run("unsharded", 1), run("frames2", 1)  # warm-up: cuDNN's algorithms for batches of 8 and 4
+    for key in ("unsharded", "frames2", "frames2", "unsharded"):
+        t0 = time.perf_counter()
+        run(key, iters)
+        secs[key].append(time.perf_counter() - t0)
+    summary = {**row, "s": secs, "frames": FRAMES_B, "hw": list(hw), "iters": iters, "parity_iters": STACK_ITERS}
+    print(f"frames: {FRAMES_B} frames at {hw[0]}x{hw[1]} on frames:2 of one card against unsharded, {iters} "
+          "L-BFGS iterations:", json.dumps(summary))
+    results["frames"] = summary
+    del engines, p0, p2, long
+    shutil.rmtree(run_dir)
+    # style capture once an engine; 5 an iteration for each stacked step
+    want0 = {"gram": STYLE_LAYERS * (STACK_ITERS + 1), "correlation": 0}
+    want2 = {"gram": STYLE_LAYERS * (2 * STACK_ITERS + 1), "correlation": 0}
+    if counts0 != want0 or counts2 != want2:
+        fail(f"frames launches: unsharded {counts0} (expected {want0}), frames:2 {counts2} (expected {want2})")
+    checked = set(mesh_gram_shapes()) | vid_runs_gram_inputs()
+    if seen - checked:
+        fail(f"frames' Gram inputs {sorted(seen - checked)} not among phase 2's")
+    if not (np.isfinite(log2).all() and row["log_rtol"] <= 1e-2 and row["mean_abs_rel_pastiche"] <= 1e-2):
+        fail(f"frames:2 against unsharded: {row} past 1e-2")
+    return counts2
+
+
 def main() -> int:
     import torch
 
@@ -2511,7 +2957,7 @@ def main() -> int:
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
         for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
-                  "clip_vqgan_rn50", "clip_video_style", "similarity"):
+                  "clip_vqgan_rn50", "clip_video_style", "similarity", "fidelity", "space", "frames", "tuner_scale"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
@@ -2530,6 +2976,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram["nca_shapes"] = check_nca_gram(results)
     gram["similarity_shapes"] = check_similarity_gram(results)
     gram["vid_img_shapes"] = check_vid_gram(results)
+    gram["mesh_shapes"] = check_mesh_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -2561,13 +3008,17 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     shutil.rmtree(os.path.join(OUT, "clip_video_style"))
     sim_counts = run_similarity(results)
     shutil.rmtree(os.path.join(OUT, "similarity"))
+    fid_counts = run_fidelity(results)
+    space_counts = run_space(results)
+    frames_counts = run_frames(results)
     drive_flags(results)
     check_determinism(results)
     run_tuner(results)  # last: its probes take the card's memory to its limit
     # launches: each path's own count, read right after it ran from zero
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
              "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,
-             "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts}
+             "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts,
+             "fidelity": fid_counts, "space": space_counts, "frames": frames_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

@@ -7,15 +7,16 @@ scaling table.
 
 Devices: ``--gpu 0`` (the default) selects ``cuda:0`` and ``--gpu c`` the
 CPU.  Without a CUDA device and without ``--gpu c`` parsing raises — the
-port never carries on silently on the CPU.  One device only: several GPUs
-(``--gpu 0,1`` or a ``--mesh`` over more than one device) raise until the
-mesh is ported (ROADMAP item 18).
+port never carries on silently on the CPU.  ``--gpu 0,1`` lists several
+cards and ``--mesh`` names their axes (``setup_devices``; the mesh itself
+is ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import uuid
 
@@ -91,9 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     # devices
     parser.add_argument("--gpu", type=str, default="0",
-                        help="CUDA device id '0', or 'c' for the CPU")
+                        help="CUDA device id(s) '0' or '0,1', or 'c' for the CPU")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="single-device mesh only (e.g. 'space:1'); multi-GPU meshes are ROADMAP item 18")
+                        help="device mesh axes, e.g. 'space:2' (img_img split into bands) or 'frames:2' "
+                             "(vid_img's first pass split by frames); default: every device on 'space'")
     parser.add_argument("--precision", choices=["highest", "high", "default"], default="highest",
                         help="'highest' = full f32 (TF32 off for matmul and cuDNN); 'high'/'default' allow TF32")
     parser.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default="float32",
@@ -230,46 +232,78 @@ def postprocess(args) -> argparse.Namespace:
     total = sum(weights)
     args.style_blend_weights = [w / total for w in weights]
 
-    args.device = setup_devices(args)
-    args.devices = [args.device]
+    args.devices, args.mesh_shape = setup_devices(args)
+    args.device = args.devices[0]
     return args
 
 
-def setup_devices(args) -> torch.device:
-    """Choose the torch device from the reference-style ``--gpu`` flag:
-    ``c`` anywhere in it selects the CPU; otherwise the single listed CUDA
-    device, which must exist.  A ``--mesh`` over more than one device raises.
+def setup_devices(args) -> tuple[list[torch.device], list[tuple[str, int]]]:
+    """The devices and the mesh's axes from the reference-style ``--gpu``
+    flag and ``--mesh`` (JAX config.py:255-303): ``(devices, [(axis,
+    size), ...])``.
+
+    - ``--gpu 0,1`` lists CUDA devices; every one must exist (JAX drops an
+      id that does not and falls back to device 0: a hidden fallback this
+      port does not copy).  Without CUDA a CUDA request raises.
+    - ``c`` anywhere in ``--gpu`` selects the CPU, as one entry, or as many
+      entries as ``--mesh`` spans (``--gpu c --mesh space:2``: two, JAX's
+      virtual CPU devices).  A device may repeat (``--gpu 0,0``): one card
+      then stands in for two.
+    - ``--mesh frames:2`` / ``space:2`` names the axes; without it every
+      device is on "space".  A mesh larger than the devices shrinks to
+      ``space:len(devices)`` (JAX :301-302); a smaller one takes the first
+      devices (``parallel.mesh.build_mesh``).
+
+    A scaling table's per-scale ``"mesh"`` (``set_model_args`` writes
+    ``args.mesh``) does not reach the engine, as in JAX: the engine's mesh
+    is this ``args.mesh_shape``, set once here.
     """
     gpu = str(getattr(args, "gpu", "0"))
+    axes = parse_mesh(getattr(args, "mesh", None))
     if "c" in gpu.lower():
         if any(d.strip().lower() != "c" for d in gpu.split(",")):
             print(f"Warning: mixed device list {gpu!r} runs CPU-only in this build.")
-        device = torch.device("cpu")
+        devices = [torch.device("cpu")] * (math.prod(s for _, s in axes) if axes else 1)
     else:
         ids = [int(i) for i in gpu.split(",")]
-        if len(ids) > 1:
-            raise NotImplementedError(
-                f"--gpu {gpu}: multi-GPU runs are not ported yet (ROADMAP item 18); pass one device id"
-            )
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"--gpu {gpu} asks for a CUDA device but torch.cuda.is_available() is False; "
                 "pass --gpu c to run on the CPU"
             )
-        if ids[0] >= torch.cuda.device_count():
+        missing = [i for i in ids if i >= torch.cuda.device_count()]
+        if missing:
             raise RuntimeError(f"--gpu {gpu}: only {torch.cuda.device_count()} CUDA device(s) visible")
-        device = torch.device("cuda", ids[0])
+        devices = [torch.device("cuda", i) for i in ids]
+    if not axes or math.prod(s for _, s in axes) > len(devices):
+        axes = [("space", len(devices))]
+    return devices, axes
 
-    mesh_str = getattr(args, "mesh", None)
-    if mesh_str:
-        n_mesh = 1
-        for part in mesh_str.split(","):
-            n_mesh *= int(part.split(":")[1])
-        if n_mesh > 1:
-            raise NotImplementedError(
-                f"--mesh {mesh_str}: multi-device meshes are not ported yet (ROADMAP item 18)"
-            )
-    return device
+
+def parse_mesh(mesh: str | None) -> list[tuple[str, int]]:
+    """``"frames:2,space:4"`` -> ``[("frames", 2), ("space", 4)]``."""
+    if not mesh:
+        return []
+    axes = []
+    for part in str(mesh).split(","):
+        axis, size = part.split(":")
+        axes.append((axis.strip(), int(size)))
+    return axes
+
+
+def single_device(args, what: str, item: str) -> torch.device:
+    """The one device of a path that has no mesh support yet: the first of
+    ``args.devices`` (chosen here by ``setup_devices`` when the caller's
+    parser did not); a mesh over more than one device raises
+    ``NotImplementedError`` naming the ROADMAP item."""
+    if getattr(args, "devices", None) is None:
+        args.devices, args.mesh_shape = setup_devices(args)
+    n = math.prod(s for _, s in args.mesh_shape)
+    if n > 1:
+        raise NotImplementedError(
+            f"{what} runs on one device; a mesh over {n} devices ({args.mesh_shape}) is ROADMAP item {item}"
+        )
+    return args.devices[0]
 
 
 def load_args(filepath: str, **overrides) -> argparse.Namespace:
@@ -319,4 +353,5 @@ def set_model_args(args, current_size: int) -> None:
         args.__dict__[key] = val
 
 
-__all__ = ["get_args", "load_args", "postprocess", "set_model_args", "build_parser", "resolve_config_path", "setup_devices"]
+__all__ = ["get_args", "load_args", "postprocess", "set_model_args", "build_parser", "resolve_config_path", "setup_devices",
+           "parse_mesh", "single_device"]

@@ -28,6 +28,19 @@ gradient normalisation and optimiser state.  ``optimize_frame_chain``
 keeps JAX's signature and results, but where JAX runs one ``lax.scan``
 program it loops over ``optimize_frame`` on the host.
 
+A mesh (``mesh=``, ``parallel/mesh.py``): on a "space" axis img_img's
+pastiche is cut into row bands, one per device (``parallel/spatial.py``),
+and every iteration runs the bands' forward with halo rows, the losses
+from per-band sums (``losses.evaluate_banded_losses``, K1 per band) and the
+optimiser band by band; the result, the ``save_iter`` snapshots and the
+run-state checkpoints are gathered to the single-device layout.  On a
+"frames" axis ``optimize_frames`` shares a chunk's frames out to the
+devices, each with its own copy of the extractor and the style targets
+and its own stacked step, the host issuing every device's iteration in
+turn.  The per-frame and chained passes run on the first device, as JAX's
+frames-stripped programs do.  Other paths on a mesh of several devices
+raise ``NotImplementedError`` naming their ROADMAP item.
+
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
 circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
 pastiche stays on the host, each window goes up, runs, and is scattered
@@ -52,6 +65,7 @@ from ..losses import (
     capture_style_targets,
     capture_style_video_targets,
     capture_temporal_targets,
+    evaluate_banded_losses,
     evaluate_frame_losses,
     evaluate_losses,
 )
@@ -59,6 +73,7 @@ from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
+from ..parallel import frame_shards, sharding_for, spatial
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
@@ -116,13 +131,30 @@ class StyleEngine:
         normalize_weights: bool = False,
         compute_dtype: torch.dtype = torch.float32,
         device=None,
+        mesh=None,
     ):
         apply_precision(precision)
         if optimizer not in ("lbfgs", "adam"):
             raise ValueError(f"unknown optimizer {optimizer}")
+        # the pastiche's plan on the mesh (``parallel.sharding_for``): its
+        # spec names the axis that shards each NCHW dim
+        self.sharding = sharding_for(mesh)
+        frames_axis, tensor_axis, space_axis, _ = self.sharding.spec if self.sharding else (None,) * 4
+        if self.sharding is not None:
+            if tensor_axis:
+                raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e")
+            if frames_axis and space_axis:
+                raise NotImplementedError(f"mesh {mesh.axes}: combined 'frames' and 'space' axes are ROADMAP item 18f")
+            device = mesh.devices[0]
+            for d in mesh.devices:
+                resolve_device(d)
+        self.mesh = self.sharding.mesh if self.sharding else None
         self.device = resolve_device(device)
         self.loss_cfg = loss_cfg
         self.spec = truncate_spec(spec, loss_cfg.all_layers)
+        # "space": the bands' devices and the rows a band boundary is a multiple of
+        self.band_devices = list(mesh.devices) if space_axis else None
+        self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
         self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
         self.optimizer_name = optimizer
         self.learning_rate = learning_rate
@@ -135,14 +167,48 @@ class StyleEngine:
         # one capture per engine (engines live per scale); per-frame callers
         # pass the same style images every call
         self._style_target_cache: dict[Any, dict] = {}
+        self._replicas: dict[torch.device, StyleEngine] = {}
 
     def _extract(self, x: torch.Tensor, layers: Sequence[str]) -> dict[str, torch.Tensor]:
         return self.extractor(x.to(self.compute_dtype), layers)
 
+    def _extract_bands(self, bands: Sequence[torch.Tensor], layers: Sequence[str]) -> dict[str, list]:
+        extractors = [self._replica(b.device).extractor for b in bands]
+        return spatial.banded_forward(extractors, [b.to(self.compute_dtype) for b in bands], layers)
+
+    def _replica(self, device) -> "StyleEngine":
+        """This engine's copy on ``device`` (a mesh's other device): the
+        extractor's weights and the settings, no mesh; the engine itself on
+        its own device."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            self._replicas[device] = StyleEngine(
+                self.spec, self.extractor.state_dict(), self.loss_cfg, optimizer=self.optimizer_name,
+                learning_rate=self.learning_rate, lbfgs_history=self.lbfgs_history, lbfgs_method=self.lbfgs_method,
+                precision=self.precision, normalize_weights=self.normalize_weights, compute_dtype=self.compute_dtype,
+                device=device,
+            )
+        return self._replicas[device]
+
+    def _one_device(self, what: str, item: str) -> None:
+        """Raise for a path that a "space" mesh does not shard."""
+        if self.band_devices:
+            raise NotImplementedError(f"{what} on a 'space' mesh ({self.mesh.axes}) is ROADMAP item {item}")
+
     # -- target capture ----------------------------------------------------
 
-    def content_targets(self, content) -> dict[str, torch.Tensor]:
-        return capture_content_targets(self._extract, to_nchw(content, self.device), self.loss_cfg)
+    def content_targets(self, content) -> dict:
+        """The content activations of a (1, H, W, 3) image; on a "space"
+        mesh a list of each band's, captured band by band."""
+        x = to_nchw(content, self.device)
+        if not self.band_devices:
+            return capture_content_targets(self._extract, x, self.loss_cfg)
+        split, _ = self._band_layout(x.shape)
+        with torch.no_grad():
+            acts = self._extract_bands(split(x), self.loss_cfg.content_layers)
+        return {l: [a.float() for a in acts[l]] for l in self.loss_cfg.content_layers}
 
     def style_targets(self, styles: Sequence, blend_weights: Sequence[float]) -> dict[str, torch.Tensor]:
         # content-addressed cache of the blended Gram targets
@@ -178,7 +244,9 @@ class StyleEngine:
             return ()
         scale = []
         for l, t in targets.get("content", {}).items():
-            scale.append((f"content:{l}", 1.0 / max(t.shape)))
+            # bands: the whole image's rows
+            shape = (*t[0].shape[:2], sum(x.shape[2] for x in t), t[0].shape[3]) if isinstance(t, list) else t.shape
+            scale.append((f"content:{l}", 1.0 / max(shape)))
         for l, t in targets.get("style", {}).items():
             scale.append((f"style:{l}", 1.0 / max(t.shape)))
         temporal = targets.get("temporal")
@@ -198,8 +266,16 @@ class StyleEngine:
                          frames=frames)
         return Adam(self.learning_rate)
 
-    def _run(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False):
-        """``n_iters`` steps; returns (pastiche, opt_state, (n_iters, n_losses) log).
+    def _run(self, *args, **kw):
+        """``_steps`` to its end: (pastiche, opt_state, log)."""
+        return _drain(self._steps(*args, **kw))
+
+    def _steps(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False):
+        """``n_iters`` steps, a generator that yields after each; returns
+        (pastiche, opt_state, (n_iters, n_losses) log).
+
+        A list ``pastiche`` is a banded one ("space" mesh): the bands' forward
+        and ``evaluate_banded_losses``, the optimiser over the bands.
 
         ``frames``: the pastiche stacks independent frames (vid_img's first
         pass, ``optimize_frames``); the losses are each frame's own
@@ -216,6 +292,9 @@ class StyleEngine:
         order, and ``opt_state`` covers the middle slice only."""
         cfg = self.loss_cfg
         logs = []
+        banded = isinstance(pastiche, list)
+        extract = self._extract_bands if banded else self._extract
+        evaluate = evaluate_banded_losses if banded else evaluate_frame_losses if frames else evaluate_losses
         p, fixed = pastiche, None
         if frozen is not None:
             fo, eo = frozen
@@ -224,20 +303,22 @@ class StyleEngine:
             with torch.no_grad():
                 fixed = self._extract(torch.cat([front, end]), cfg.all_layers)
         for _ in range(n_iters):
-            p = p.detach().requires_grad_(True)
-            acts, full = self._extract(p, cfg.all_layers), p
+            p = [b.detach().requires_grad_(True) for b in p] if banded else p.detach().requires_grad_(True)
+            acts, full = extract(p, cfg.all_layers), p
             if fixed is not None:
                 acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in acts.items()}
                 full = torch.cat([front, p, end])
-            total, per = (evaluate_frame_losses if frames else evaluate_losses)(full, acts, targets, cfg, scale)
-            (grad,) = torch.autograd.grad(total, p)
-            grad = grad.float() if mask is None else grad.float() * mask
+            total, per = evaluate(full, acts, targets, cfg, scale)
+            grads = [g.float() for g in torch.autograd.grad(total, p)]
+            grad = grads if banded else grads[0] if mask is None else grads[0] * mask
             upd, opt_state = opt.update(grad, opt_state)
-            p = p.detach() + upd
+            p = [b.detach() + u for b, u in zip(p, upd)] if banded else p.detach() + upd
             logs.append(per.detach())
+            yield
         if fixed is not None:
             p = torch.cat([front, p, end])
-        log = torch.stack(logs) if logs else p.new_zeros((0, *p.shape[:frames], len(cfg.loss_names())))
+        one = p[0] if banded else p
+        log = torch.stack(logs) if logs else one.new_zeros((0, *one.shape[:frames], len(cfg.loss_names())))
         return p, opt_state, log
 
     def _iterate(self, p, opt, st, targets, scale, num_iters, done, after_chunk, *, save_iter, print_iter,
@@ -312,7 +393,12 @@ class StyleEngine:
         """
         if transfer_type not in ("img_img", "vid_img", "img_vid"):
             raise ValueError(f"unknown transfer_type {transfer_type!r}")
+        if transfer_type == "img_vid" and self.mesh is not None:
+            raise NotImplementedError(f"img_vid's windows on a mesh ({self.mesh.axes}) are ROADMAP item 18c")
+        if transfer_type == "vid_img" or temporal_target is not None or temporal_warp is not None:
+            self._one_device("vid_img's per-frame passes", "18b")
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
+        loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         targets = {"content": self.content_targets(content)}
         weights = None if temporal_weights is None else to_nchw(temporal_weights, self.device)
         if temporal_warp is not None:
@@ -321,7 +407,6 @@ class StyleEngine:
             targets["temporal"] = capture_temporal_targets(warped, weights)
         elif temporal_target is not None:
             targets["temporal"] = capture_temporal_targets(to_nchw(temporal_target, self.device), weights)
-        loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         if transfer_type == "img_vid":
             if gram_frame_window is None:
                 raise ValueError("img_vid needs gram_frame_window")
@@ -331,25 +416,45 @@ class StyleEngine:
         targets["style"] = self.style_targets(styles, blend_weights)
         scale = dict(self._strength_scale(targets))
         pastiche = to_nchw(init, self.device)
+        split, gather = self._band_layout(pastiche.shape)
         opt = self._make_optimizer()
-        opt_state = opt.init(pastiche)
-        done = 0
+        # the state's pastiche-sized entries, kept band by band on a "space"
+        # mesh; run-states hold the single-device layout either way, so a
+        # banded run and an unbanded one resume each other's state
+        per_band = {k for k, v in opt.init([pastiche.to("meta")]).items() if isinstance(v, list)}
+        opt_state, done = None, 0
         if run_checkpoint is not None:
-            restored = load_state(run_checkpoint, pastiche, opt_state)
+            restored = load_state(run_checkpoint, pastiche, opt.init(pastiche.to("meta")))
             if restored is not None:
-                pastiche, opt_state, _, done = restored
+                pastiche, whole_state, _, done = restored
+                opt_state = {k: split(v) if k in per_band else v for k, v in whole_state.items()}
+        if opt_state is None:
+            opt_state = opt.init(split(pastiche))
 
         def after_chunk(p, st, done):
+            p = gather(p)
             if save_callback is not None:
                 save_callback(to_nhwc(p), done)
             if run_checkpoint is not None:
-                save_state(run_checkpoint, p, st, 0, done)
+                save_state(run_checkpoint, p, {k: gather(v) if k in per_band else v for k, v in st.items()}, 0, done)
 
-        pastiche, _, logs = self._iterate(pastiche, opt, opt_state, targets, scale, num_iters, done, after_chunk, **loop)
+        pastiche, _, logs = self._iterate(split(pastiche), opt, opt_state, targets, scale, num_iters, done, after_chunk,
+                                          **loop)
         if run_checkpoint is not None:
             shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
         self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
-        return to_nhwc(pastiche)
+        return to_nhwc(gather(pastiche))
+
+    def _band_layout(self, shape) -> tuple[Callable, Callable]:
+        """(split, gather) of a (1, C, H, W) pastiche-sized tensor, or of a
+        flat state entry, between the single-device layout and the row
+        bands of a "space" mesh; both the identity without one."""
+        if not self.band_devices:
+            return _same, _same
+        _, c, h, w = shape
+        heights = spatial.band_rows(h, len(self.band_devices), self.band_align)
+        return (lambda x: spatial.split_rows(x, heights, self.band_devices, c, w),
+                lambda x: spatial.gather_rows(x, heights, self.device, c, w))
 
     def _optimize_windows(self, targets, styles, blend_weights, init, num_iters, gfw, avg_frame_window,
                           save_callback, run_checkpoint, loop) -> np.ndarray:
@@ -473,7 +578,7 @@ class StyleEngine:
         hist_stats=None,
         seed: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """One vid_img frame on the device (reference style.py:192-297):
+        """One vid_img frame on the (first) device (reference style.py:192-297):
         u8 preprocess and resize, histogram match, content target, the
         flow-warped temporal target, the init (``content``, ``random``,
         ``warp_prev`` or ``blend``), ``num_iters`` iterations, the output
@@ -485,6 +590,7 @@ class StyleEngine:
         Returns ``(pastiche (1, 3, h, w), display (h, w, 3) uint8)``, both
         on the device; ``last_loss_log`` is the (num_iters, n_losses) log,
         also on the device."""
+        self._one_device("vid_img's per-frame passes", "18b")
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
@@ -548,13 +654,44 @@ class StyleEngine:
         random init drawn from its own seed as ``optimize_frame`` draws it,
         and its losses, gradient normalisation and optimiser state are its
         own; the style targets are shared.  ``last_loss_log`` is
-        (B, num_iters, n_losses)."""
+        (B, num_iters, n_losses).  On a "frames" mesh each device takes
+        its share of the frames (``parallel.frame_shards``; a chunk the
+        axis does not divide runs here), and the results come back to the
+        first device."""
         if init_mode not in ("content", "random"):
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
-        out_hw = tuple(int(v) for v in out_hw)
+        self._one_device("vid_img's stacked first pass", "18b")
+        contents_u8 = np.asarray(contents_u8)
+        seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
-        u8 = _on(np.asarray(contents_u8), self.device)  # the chunk goes up at once
-        seeds = list(seeds) if seeds is not None else list(range(u8.shape[0]))
+        kw = dict(out_hw=tuple(int(v) for v in out_hw), content_scale=content_scale, blend_weights=blend_weights,
+                  init_mode=init_mode, hist_stats=hist_stats)
+        shards = frame_shards(self.sharding, len(contents_u8))
+        if shards is None:  # one device, or a chunk the frames axis does not divide
+            pastiches, displays, log = _drain(self._frames_job(contents_u8, styles, num_iters, seeds, **kw))
+        else:
+            # each device's share with its own extractor copy and style
+            # targets (captured once, here, and copied); the host enqueues
+            # one iteration of every device's step in turn
+            self.style_targets(styles, blend_weights)
+            jobs = []
+            for dev, part in shards:
+                replica = self._replica(dev)
+                if replica is not self:
+                    replica._style_target_cache = {k: {l: t.to(dev) for l, t in v.items()}
+                                                   for k, v in self._style_target_cache.items()}
+                jobs.append(replica._frames_job(contents_u8[part], styles, num_iters, seeds[part], **kw))
+            outs = _drain_all(jobs)
+            pastiches, displays, log = (torch.cat([o[i].to(self.device) for o in outs]) for i in range(3))
+        self.last_loss_log = log
+        return pastiches, displays
+
+    def _frames_job(self, contents_u8, styles, num_iters, seeds, *, out_hw, content_scale, blend_weights, init_mode,
+                    hist_stats):
+        """``optimize_frames``'s work on this engine's device, a generator
+        that yields after each iteration; returns (pastiches, displays,
+        log (B, num_iters, n_losses))."""
+        u8 = _on(contents_u8, self.device)  # the chunk goes up at once
         c = torch.cat([self._frame_content(f, out_hw, content_scale, hist_stats) for f in u8])
         targets = {"style": self.style_targets(styles, blend_weights),
                    "content": capture_content_targets(self._extract, c, self.loss_cfg)}
@@ -563,10 +700,9 @@ class StyleEngine:
                                            "content": {l: t[:1] for l, t in targets["content"].items()}}))
         p0 = c if init_mode == "content" else torch.cat([self._noise(seed, out_hw) for seed in seeds])
         opt = self._make_optimizer(frames=True)
-        p, _, log = self._run(p0, opt, opt.init(p0), targets, scale, int(num_iters), frames=True)
+        p, _, log = yield from self._steps(p0, opt, opt.init(p0), targets, scale, int(num_iters), frames=True)
         outs = [match_histogram_device(f, *hist_stats) if hist_stats is not None else f for f in p.split(1)]
-        self.last_loss_log = log.transpose(0, 1)
-        return torch.stack(outs), torch.stack([deprocess_to_u8(o) for o in outs])
+        return torch.stack(outs), torch.stack([deprocess_to_u8(o) for o in outs]), log.transpose(0, 1)
 
     def _frame_content(self, u8: torch.Tensor, out_hw: tuple[int, int], content_scale, hist_stats) -> torch.Tensor:
         """One (H, W, 3) u8 frame on the device -> its (1, 3, h, w) content
@@ -623,6 +759,33 @@ class StyleEngine:
             logs.append(self.last_loss_log)
         self.last_loss_log = torch.stack(logs)
         return chain, torch.stack(disps)
+
+
+def _same(x):
+    return x
+
+
+def _drain(gen):
+    """Run a step generator to its end; its return value."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
+
+
+def _drain_all(gens: list) -> list:
+    """Run step generators side by side, one step of each in turn (each
+    device's work enqueued every iteration); their return values."""
+    out, live = [None] * len(gens), list(range(len(gens)))
+    while live:
+        for i in list(live):
+            try:
+                next(gens[i])
+            except StopIteration as stop:
+                out[i] = stop.value
+                live.remove(i)
+    return out
 
 
 def _on(x, device) -> torch.Tensor:

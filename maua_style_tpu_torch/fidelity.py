@@ -1,0 +1,78 @@
+"""Output-fidelity check of the port's img_img against an image another
+run produced (JAX counterpart: tools/fidelity_vs_reference.py).
+
+    python -m maua_style_tpu_torch.fidelity --reference_output ref/c_s_1024.png \
+        -- --content c.png --style s.png --output_dir /tmp/fid_out \
+           --image_sizes 1024 --num_iters 500 --seed 27
+
+Everything after ``--`` is the port's style CLI arg list (``config``); the
+run must be img_img.  The reference image is the reference implementation's
+output, the JAX package's, or the port's own on another device (the same
+arguments with ``--gpu c``).  Prints one JSON line, ``{"ssim": S,
+"threshold": T, "pass": bool, "ours": path, "reference": path}``, and exits
+1 when S < T (default 0.98, BASELINE.md's north star).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+_OWN = ("--reference_output", "--threshold")
+
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    ap = argparse.ArgumentParser("maua_style_tpu_torch.fidelity", description=__doc__.split("\n")[0])
+    ap.add_argument("--reference_output", required=True, help="the image to hold the port's output to")
+    ap.add_argument("--threshold", type=float, default=0.98, help="SSIM pass bound (BASELINE.md)")
+    if "--" in argv:
+        own, style_argv = argv[: argv.index("--")], argv[argv.index("--") + 1 :]
+    else:  # a flat list: everything this tool does not own goes to the style CLI
+        own, style_argv = [], []
+        it = iter(argv)
+        for tok in it:
+            if tok in _OWN:
+                own += [tok, next(it)]
+            else:
+                style_argv.append(tok)
+    args = ap.parse_args(own)
+
+    from PIL import Image
+
+    from . import config
+    from .pipelines.img_img import img_img
+    from .utils import ssim
+
+    style_args = config.get_args(style_argv)
+    if style_args.transfer_type != "img_img":
+        raise SystemExit("the fidelity check runs the img_img path")
+    if style_args.seed >= 0:  # the style CLI's seeding (style.main)
+        np.random.seed(style_args.seed)
+    img_img(style_args)
+
+    ours_path = f"{style_args.output}_{style_args.image_sizes[-1]}.png"
+    ours = np.asarray(Image.open(ours_path).convert("RGB"))
+    ref = np.asarray(Image.open(args.reference_output).convert("RGB"))
+    if ref.shape != ours.shape:
+        raise SystemExit(
+            f"shape mismatch: ours {ours.shape} vs reference {ref.shape}: "
+            "run both with the same --image_sizes and content"
+        )
+    s = ssim(ours, ref)
+    verdict = {
+        "ssim": round(s, 6),
+        "threshold": args.threshold,
+        "pass": bool(s >= args.threshold),
+        "ours": ours_path,
+        "reference": args.reference_output,
+    }
+    print(json.dumps(verdict))
+    return verdict
+
+
+if __name__ == "__main__":
+    sys.exit(0 if main()["pass"] else 1)

@@ -18,6 +18,8 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
 - tv: anisotropic L1 total variation (loss.py:224-233).
 - ``evaluate_frame_losses``: vid_img's stacked first pass, a batch of
   independent frames, each frame's values its own ``evaluate_losses``.
+- ``evaluate_banded_losses``: img_img's pastiche cut into row bands over a
+  "space" mesh, the same values from per-band sums.
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
@@ -31,7 +33,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from .ops.gram import batch_gram, video_gram
+from .ops.gram import banded_gram, batch_gram, video_gram
+from .parallel.spatial import sum_on
 
 
 class _ScaleGradients(torch.autograd.Function):
@@ -271,6 +274,65 @@ def evaluate_frame_losses(
     return torch.stack(totals).sum(), torch.stack(pers)
 
 
+def banded_tv_loss(bands) -> torch.Tensor:
+    """``tv_loss`` of an image cut into row bands: each band's own pairs,
+    plus the row pair across each boundary, summed on the first band's
+    device."""
+    across = [torch.sum(torch.abs(x[:, :, :1] - above[:, :, -1:].to(x.device))) for above, x in zip(bands, bands[1:])]
+    return sum_on(bands[0].device, [tv_loss(x) for x in bands] + across)
+
+
+def evaluate_banded_losses(
+    bands: Sequence[torch.Tensor],
+    acts: dict[str, list],
+    targets: dict[str, Any],
+    cfg: LossConfig,
+    strength_scale: dict[str, float] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``evaluate_losses`` of one (1, 3, H, W) pastiche cut into row bands
+    (``parallel/spatial.py``; img_img on a "space" mesh): ``acts`` and the
+    content targets hold one tensor per band.  Each term is built once, on
+    the first band's device, from sums over the bands divided by the whole
+    image's counts: the content MSE, the style MSE of the summed Gram
+    (``banded_gram``, K1 per band), TV with the pairs across the
+    boundaries.  Gradient normalisation then acts on each term's one
+    scalar, as it does unbanded.  No temporal term (vid_img)."""
+    dev = bands[0].device
+    scale = strength_scale or {}
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    values = []
+
+    content_targets = targets.get("content", {})
+    for l in cfg.content_layers:
+        strength = cfg.content_weight * scale.get(f"content:{l}", 1.0)
+        v = zero
+        if l in content_targets:
+            sq = sum_on(dev, [torch.sum(torch.square(a.float() - t.float())) for a, t in zip(acts[l], content_targets[l])])
+            v = _term(sq / sum(a.numel() for a in acts[l]), strength, 1, cfg.normalize_gradients)
+        values.append(v)
+
+    style_targets = targets.get("style", {})
+    for l in cfg.style_layers:
+        strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
+        v = zero
+        if l in style_targets:
+            a = acts[l]
+            nelement = a[0].shape[1] * sum(x.shape[2] for x in a) * a[0].shape[3]
+            g = banded_gram(a, cfg.use_covariance) / nelement
+            v = _term(_mse(g[0], style_targets[l]), strength, 1, cfg.normalize_gradients)
+        values.append(v)
+
+    if cfg.tv_weight > 0:
+        values.append(cfg.tv_weight * banded_tv_loss(bands))
+    if cfg.temporal_weight > 0:
+        if targets.get("temporal") is not None:
+            raise NotImplementedError("a temporal target on a 'space' mesh is vid_img's (ROADMAP item 18b)")
+        values.append(zero)
+
+    per = torch.stack(values)
+    return per.sum(), per
+
+
 __all__ = [
     "LossConfig",
     "scale_gradients",
@@ -281,4 +343,6 @@ __all__ = [
     "capture_temporal_targets",
     "evaluate_losses",
     "evaluate_frame_losses",
+    "evaluate_banded_losses",
+    "banded_tv_loss",
 ]

@@ -123,32 +123,40 @@ class Extractor(nn.Module):
             self.load_state_dict({k: v for k, v in state_dict.items() if k.split(".")[0] in own})
         self.requires_grad_(False)
 
-    def forward(self, x: torch.Tensor, wanted: Iterable[str] = ()) -> dict[str, torch.Tensor]:
-        """x: (B, C, H, W).  Returns {name: activation} for ``wanted``."""
-        wanted = tuple(wanted)
+    def forward(self, x, wanted: Iterable[str] = (), conv=None) -> dict:
+        """x: (B, C, H, W), or a list of row bands of one image
+        (``parallel/spatial.py``).  Returns {name: activation} for
+        ``wanted``, a list of band activations each for bands.  ``conv(layer,
+        xs)`` runs a convolution layer over the list ``xs`` (bands: with
+        their halo rows, ``spatial.banded_forward``); by default this
+        module's own convolution of each."""
+        banded = isinstance(x, (list, tuple))
+        xs = list(x) if banded else [x]
+        if conv is None:
+            def conv(layer, xs):
+                return [self.get_submodule(layer.name)(x) for x in xs]
         remaining = set(wanted)
-        acts: dict[str, torch.Tensor] = {}
+        acts: dict = {}
         for layer in self.spec.layers:
             if layer.kind == "conv":
-                x = self.get_submodule(layer.name)(x)
+                xs = conv(layer, xs)
             elif layer.kind == "relu":
-                x = torch.relu(x)
+                xs = [torch.relu(x) for x in xs]
             elif layer.kind in ("maxpool", "avgpool"):
-                x = _pool(x, layer)
+                xs = [_pool(x, layer) for x in xs]
             elif layer.kind == "drop":
                 pass  # inference-mode dropout is identity
             elif layer.kind == "softmax":
-                x = torch.softmax(x, dim=1)
+                xs = [torch.softmax(x, dim=1) for x in xs]
             else:  # pragma: no cover
                 raise ValueError(f"unknown layer kind {layer.kind}")
             if layer.name in remaining:
-                acts[layer.name] = x
+                acts[layer.name] = xs if banded else xs[0]
                 remaining.discard(layer.name)
                 if not remaining:
                     break
         if remaining:
             raise ValueError(f"layers not found in {self.spec.arch}: {sorted(remaining)}")
         return acts
-
 
 __all__ = ["Layer", "ExtractorSpec", "Extractor", "init_params", "truncate_spec"]

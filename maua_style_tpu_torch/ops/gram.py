@@ -15,6 +15,8 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
   outside any kernel, as in the JAX package.
 - ``batch_gram``: (B, C, H, W) -> (B, C, C), with covariance centering in
   plain torch around the Function.
+- ``banded_gram``: the Gram of an image cut into row bands on several
+  devices (``parallel/spatial.py``), one kernel launch per band.
 - ``video_gram``: the whole-window ("dynamic texture") Gram of img_vid,
   (T, C, H, W) -> (T·C, T·C): ``batch_gram`` of the (1, T·C, H, W) view,
   so it runs the same kernel.
@@ -29,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import build
+from ..parallel.spatial import sum_on
 
 _STAGE = 64  # N positions of a bf16 stage of csrc/gram.cu, two f32 stages
 _MIN_SPLIT = 256  # fewest N positions one block sums
@@ -191,6 +194,22 @@ def video_gram(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return batch_gram(x.reshape(1, t * c, *x.shape[2:]), use_covariance)[0]
 
 
+def banded_gram(bands, use_covariance: bool = False) -> torch.Tensor:
+    """The unnormalised Gram of an image cut into row bands, (1, C, h_i, W)
+    each on its own device: each band's Gram through ``_GramFn`` (K1 on a
+    CUDA band) on the band's device, the partials summed on the first
+    band's device -> (1, C, C) f32.  ``use_covariance`` centres every band
+    with the image's channel means, summed from the bands.  The backward
+    of the sum hands each band the summed Gram's gradient, once."""
+    dev = bands[0].device
+    fs = [x.reshape(1, x.shape[1], -1) for x in bands]
+    if use_covariance:
+        n = sum(f.shape[2] for f in fs)
+        mean = sum_on(dev, [f.sum(dim=2, keepdim=True, dtype=torch.float32) for f in fs]) / n
+        fs = [f - mean.to(device=f.device, dtype=f.dtype) for f in fs]
+    return sum_on(dev, [_GramFn.apply(f) for f in fs])
+
+
 def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     """Gram of a single frame: (C, H, W) or (1, C, H, W) -> (C, C)
     (without the /nelement normalisation; callers divide)."""
@@ -199,4 +218,4 @@ def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return batch_gram(x, use_covariance)[0]
 
 
-__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "video_gram", "gram_matrix"]
+__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "banded_gram", "video_gram", "gram_matrix"]

@@ -1,0 +1,103 @@
+"""The device mesh and its sharding policy (JAX counterpart:
+maua_style_tpu/parallel/mesh.py).
+
+A ``Mesh`` names axes over a list of ``torch.device``s, one process driving
+them all, as JAX's single controller drives its mesh.  A device may repeat
+(``[cpu, cpu]``, ``[cuda:0, cuda:0]``): one device then stands in for
+several, as JAX's virtual CPU devices do, and the code runs exactly as it
+would on distinct cards.
+
+Axes: "space" cuts a pastiche's rows into bands (``parallel/spatial.py``;
+img_img), "frames" shares a stacked batch of independent frames out to the
+devices (vid_img's first pass, ``StyleEngine.optimize_frames``), "tensor"
+(channels) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Sequence
+
+import torch
+
+# the NCHW dim each axis shards (JAX's NHWC policy: frames 0, space 1, tensor 3)
+_DIMS = {"frames": 0, "tensor": 1, "space": 2}
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """``devices`` laid out row-major over ``axes``, ((name, size), ...)."""
+
+    devices: tuple[torch.device, ...]
+    axes: tuple[tuple[str, int], ...]
+
+    def __post_init__(self):
+        if math.prod(s for _, s in self.axes) != len(self.devices):
+            raise ValueError(f"mesh axes {self.axes} do not hold {len(self.devices)} devices")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(self.axes)
+
+    def size(self, axis: str) -> int:
+        """The axis's size, 1 where the mesh has no such axis."""
+        return self.shape.get(axis, 1)
+
+
+def build_mesh(devices: Sequence, axes: Sequence[tuple[str, int]] | None = None) -> Mesh:
+    """A mesh over the first devices that ``axes`` spans (ordered (axis,
+    size) pairs; default every device on "space")."""
+    devices = [torch.device(d) for d in devices]
+    if axes is None:
+        axes = [("space", len(devices))]
+    n = math.prod(s for _, s in axes)
+    if n > len(devices):
+        raise ValueError(f"mesh {list(axes)} needs {n} devices, {len(devices)} given")
+    return Mesh(tuple(devices[:n]), tuple((str(a), int(s)) for a, s in axes))
+
+
+class Sharding(NamedTuple):
+    """A pastiche's plan: the mesh, and for each NCHW dim the axis that
+    shards it (or None)."""
+
+    mesh: Mesh
+    spec: tuple[str | None, str | None, str | None, str | None]
+
+
+def sharding_for(mesh: Mesh | None) -> Sharding | None:
+    """The plan for a (B, C, H, W) pastiche on ``mesh``, or None on one
+    device: "frames" shards B, "space" H, "tensor" C; an axis of size 1
+    shards nothing.  The engine reads its paths from this plan."""
+    if mesh is None or len(mesh.devices) < 2:
+        return None
+    spec: list = [None] * 4
+    for axis, size in mesh.axes:
+        if axis in _DIMS and size > 1:
+            spec[_DIMS[axis]] = axis
+    return Sharding(mesh, tuple(spec))
+
+
+def pastiche_sharding_for(args) -> Sharding | None:
+    """``sharding_for`` the mesh of parsed args (``args.devices``,
+    ``args.mesh_shape``), or None on one device."""
+    devices = getattr(args, "devices", None)
+    if not devices or len(devices) < 2:
+        return None
+    return sharding_for(build_mesh(devices, getattr(args, "mesh_shape", None)))
+
+
+def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[torch.device, slice]] | None:
+    """A stacked batch of ``batch`` independent frames split over the plan's
+    "frames" axis: (device, frames) per device, or None where the plan does
+    not shard frames or the axis does not divide the batch (JAX's rule,
+    engine/optimize.py:763-766: such a chunk runs unsharded)."""
+    if sharding is None or sharding.spec[_DIMS["frames"]] != "frames":
+        return None
+    n = sharding.mesh.size("frames")
+    if batch % n:
+        return None
+    per = batch // n
+    return [(dev, slice(i * per, (i + 1) * per)) for i, dev in enumerate(sharding.mesh.devices[:n])]
+
+__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "frame_shards"]

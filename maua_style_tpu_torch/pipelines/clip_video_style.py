@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import io as mio
+from ..config import single_device
 from ..engine.optimize import apply_precision
 from ..io.image import CAFFE_MEAN
 from .clip_vqgan import get_engine
@@ -41,6 +42,7 @@ def _rgb01_to_bgr(x: np.ndarray) -> np.ndarray:
 
 
 def clip_video_style(args) -> None:
+    single_device(args, "clip_video_style", "18d")
     # TF32 flags are process-wide: off before the pre-pass thread runs its
     # convolutions, as the engine keeps them
     apply_precision("highest")

@@ -58,11 +58,30 @@ def size_to_fit(size, max_dim, scale_up=False):
     return new_w, new_h
 
 
-def _missing_clip_checkpoint(candidates) -> None:
+# the CLIP backbones with a download source (``io/download.SOURCES``)
+CLIP_SOURCES = {"ViT-B/32": "clip_vitb32", "RN50": "clip_rn50"}
+
+
+def download_names(clip_backbone: str, vqgan_dir: str) -> list[str]:
+    """What ``--download_weights`` provisions: the backbone's CLIP
+    checkpoint where it has a source, the BPE vocabulary, and the VQGAN
+    checkpoint when ``vqgan_dir`` names one.  RN101 and RN50x4 have no
+    source: ``_load_clip`` then names the checkpoint that stays missing.
+    (JAX's CLI asks for RN50's file for RN50x4 and ViT-B/32's for RN101,
+    neither of which those backbones read.)"""
+    from ..io.download import SOURCES
+
+    names = [CLIP_SOURCES[clip_backbone]] if clip_backbone in CLIP_SOURCES else []
+    return names + ["bpe_vocab"] + ([vqgan_dir] if vqgan_dir in SOURCES else [])
+
+
+def _missing_clip_checkpoint(candidates, backbone: str = "ViT-B/32") -> None:
     """Missing CLIP weights are an error unless random weights are allowed."""
     if not allow_random_weights(None):
+        nosource = "" if backbone in CLIP_SOURCES else (
+            f"--download_weights has no source for {backbone}: convert its OpenAI checkpoint to {candidates[0]}.\n")
         raise FileNotFoundError(
-            f"No CLIP checkpoint (searched {list(candidates)}).\n"
+            f"No CLIP checkpoint (searched {list(candidates)}).\n{nosource}"
             f"Convert the OpenAI .pt once with:\n"
             f"    python -m maua_style_tpu.models.clip.convert <clip.pt> {candidates[0]}\n"
             f"or pass --allow_random_weights to run with deterministic random "
@@ -81,7 +100,7 @@ def _load_clip(clip_backbone: str) -> CLIP:
             model = CLIPResNet.from_backbone(clip_backbone)
             model.load_state_dict(clip_params_from_jax(load_clip_npz(path)))
             return model
-        _missing_clip_checkpoint((path,))
+        _missing_clip_checkpoint((path,), clip_backbone)
         print(f"Warning: no CLIP checkpoint ({path}); using deterministic random init.")
         return init_clip_resnet(clip_backbone)
     if clip_backbone != "ViT-B/32":
@@ -289,7 +308,7 @@ def main(argv=None):
 
     from PIL import Image
 
-    from ..config import setup_devices
+    from ..config import single_device
 
     # fmt: off
     parser = argparse.ArgumentParser("clip_vqgan")
@@ -312,7 +331,7 @@ def main(argv=None):
     parser.add_argument("--allow_random_weights", action="store_true",
                         help="proceed with deterministic random weights when checkpoints are missing")
     parser.add_argument("--download_weights", action="store_true",
-                        help="self-provision missing CLIP/VQGAN checkpoints + BPE vocab (not ported yet)")
+                        help="self-provision missing CLIP/VQGAN checkpoints + BPE vocab (needs network access)")
     parser.add_argument("--gpu", type=str, default="0", help="CUDA device id '0', or 'c' for the CPU")
     # fmt: on
     args = parser.parse_args(argv)
@@ -320,8 +339,10 @@ def main(argv=None):
     if args.allow_random_weights:
         os.environ["MAUA_ALLOW_RANDOM_WEIGHTS"] = "1"
     if args.download_weights:
-        raise NotImplementedError("--download_weights is not ported yet (ROADMAP item 19)")
-    device = setup_devices(args)
+        from ..io.download import ensure_weights
+
+        ensure_weights(download_names(args.clip_backbone, args.vqgan_dir))
+    device = single_device(args, "clip_vqgan", "18d")
 
     if args.seed >= 0:
         np.random.seed(args.seed)

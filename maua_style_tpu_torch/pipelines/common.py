@@ -13,6 +13,7 @@ from ..engine import StyleEngine
 from ..losses import LossConfig
 from ..models import load_params, select_model
 from ..ops.resize import resize_bilinear_np
+from ..parallel import pastiche_sharding_for
 
 
 def loss_config_from_args(args) -> LossConfig:
@@ -31,13 +32,16 @@ def loss_config_from_args(args) -> LossConfig:
 
 def build_engine(args, current_size: int | None = None) -> StyleEngine:
     """A StyleEngine for the current scale, after the scaling-table model
-    swap (reference optim.py:93-108 + models.load_model)."""
+    swap (reference optim.py:93-108 + models.load_model), on the mesh of
+    ``--gpu`` / ``--mesh`` (``parallel.pastiche_sharding_for``; None on one
+    device)."""
     if current_size is not None:
         set_model_args(args, current_size)
     spec = select_model(str(args.model_file).lower(), args.pooling)
     params = load_params(spec, str(args.model_file), strict=not args.disable_check,
                          allow_random=getattr(args, "allow_random_weights", None) or None)
     bf16 = str(getattr(args, "compute_dtype", "float32")) in ("bfloat16", "bf16")
+    sharding = pastiche_sharding_for(args)
     return StyleEngine(
         spec,
         params,
@@ -50,6 +54,7 @@ def build_engine(args, current_size: int | None = None) -> StyleEngine:
         normalize_weights=bool(args.normalize_weights),
         compute_dtype=torch.bfloat16 if bf16 else torch.float32,
         device=args.device,
+        mesh=sharding.mesh if sharding is not None else None,
     )
 
 

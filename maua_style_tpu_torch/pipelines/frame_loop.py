@@ -370,9 +370,11 @@ def _device_first_pass_batched(
         todo[out_path] = (n, this_frame)
 
     items = sorted(todo.items(), key=lambda kv: kv[1][0])
-    # JAX multiplies the auto batch by a "frames" mesh axis here; that waits
-    # for multi-GPU runs (ROADMAP item 18)
     batch = _auto_frame_batch(out_hw, getattr(args, "frame_batch", 0), args)
+    if engine.mesh is not None and not getattr(args, "frame_batch", 0) > 0:
+        # a "frames" mesh axis shares each chunk out n ways: a device holds
+        # batch/n frames, so the auto batch scales with n (JAX :382-386)
+        batch *= engine.mesh.size("frames")
     iters = max(num_iters // args.passes_per_scale, 1)
     seed0 = int(getattr(args, "seed", 0) or 0)
     init_mode = "random" if args.init == "random" else "content"

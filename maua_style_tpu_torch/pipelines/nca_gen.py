@@ -114,7 +114,7 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     import argparse
 
-    from ..config import setup_devices
+    from ..config import single_device
 
     ap = argparse.ArgumentParser("nca_gen")
     ap.add_argument("style_file")
@@ -124,7 +124,7 @@ def main(argv=None):
     ap.add_argument("--text", type=str, default=None)
     ap.add_argument("--gpu", type=str, default="0", help="CUDA device id '0', or 'c' for the CPU")
     args = ap.parse_args(argv)
-    device = setup_devices(args)
+    device = single_device(args, "nca_gen", "18i")
 
     stem = name(args.style_file)
     ckpt = args.checkpoint or f"{args.out_dir}/{stem}_7500.npz"

@@ -196,7 +196,7 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     import argparse
 
-    from ..config import setup_devices
+    from ..config import single_device
 
     ap = argparse.ArgumentParser("nca_train")
     ap.add_argument("style_file")
@@ -218,7 +218,7 @@ def main(argv=None):
         seed=args.seed,
         model_file=args.model_file,
         allow_random_weights=args.allow_random_weights or None,
-        device=setup_devices(args),
+        device=single_device(args, "nca_train", "18i"),
     )
 
 

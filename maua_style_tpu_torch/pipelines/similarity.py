@@ -92,7 +92,7 @@ def run(dataset_dir: str, args, *, pattern: str = "*", grids: bool = False, dry_
     triple (reference similarity.py:91-98); returns the (content, styles)
     jobs.  ``args`` is set anew for each job and run through
     ``config.postprocess``."""
-    from ..config import postprocess
+    from ..config import postprocess, single_device
     from .img_img import img_img
 
     images = sorted(
@@ -119,6 +119,7 @@ def run(dataset_dir: str, args, *, pattern: str = "*", grids: bool = False, dry_
     if dry_run:
         return jobs
 
+    single_device(args, "similarity's jobs", "18j")
     for content, styles in jobs:
         args.content = content
         args.style = styles

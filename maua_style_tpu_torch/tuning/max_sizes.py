@@ -6,8 +6,9 @@ The reference OOM-probes every (model x optimizer x #GPUs) combination on
 CUDA (max-sizes.py:59-111).  Here ``method="analysis"`` is a measured probe
 on the card: it builds the port's ``StyleEngine`` at the candidate size,
 captures its targets, runs two iterations and reads the CUDA allocator's
-peak (``torch.cuda.max_memory_allocated``); an out-of-memory error counts
-as over budget.  ``method="estimate"`` is the analytic footprint
+peaks (``torch.cuda.max_memory_allocated``, ``max_memory_reserved``); the
+search holds the reserved one to the free memory, and an out-of-memory
+error counts as over budget.  ``method="estimate"`` is the analytic footprint
 (``estimate_step_bytes``), whose constants (``CONSTANTS``) are fitted to
 those measured peaks (``fit_constants``), not to XLA's memory analysis on a
 TPU.
@@ -52,6 +53,17 @@ CONSTANTS = {
     # the allocator's share of the runtime beyond the weights, bytes [64 MiB]
     "slack": 67_200_000,
 }
+
+
+# the port's tables; the repository's top-level configs/ holds the JAX
+# package's, which this tuner never writes
+TABLE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+
+
+def default_table_path(gb: int, devices: int = 1) -> str:
+    """Where the CLI writes a table without ``--out``: the port's
+    ``configs/`` under JAX's file name."""
+    return os.path.join(TABLE_DIR, f"max-sizes-{gb}GB-{devices}chip.json")
 
 
 def _round32(x: float) -> int:
@@ -186,14 +198,18 @@ def chain_frames_per_program(
     return int(max(1, min(cap, budget // max(stacked_inputs, 1))))
 
 
-def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str = "bfloat16",
-                       lbfgs_method: str = "compact", device=None) -> int | None:
-    """The measured probe: the CUDA allocator's peak over building the
-    port's ``StyleEngine`` at size x size (``init_params`` seed 0; precision
-    "default" for bf16, "highest" for f32), capturing its content and style
-    targets and running two iterations, above what was allocated before.
-    None when the card runs out of memory.  Everything the probe made is
-    freed before it returns."""
+def measure_step(model: str, optimizer: str, size: int, compute_dtype: str = "bfloat16",
+                 lbfgs_method: str = "compact", device=None) -> dict | None:
+    """The measured probe: build the port's ``StyleEngine`` at size x size
+    (``init_params`` seed 0; precision "default" for bf16, "highest" for
+    f32), capture its content and style targets and run two iterations.
+    Returns the CUDA allocator's peaks above where they stood before, what
+    tensors took (``allocated``, ``max_memory_allocated``) and what the
+    allocator took from the device (``reserved``, ``max_memory_reserved``:
+    its blocks' rounding and splits besides), and the device's free memory
+    before the probe (``free``, ``torch.cuda.mem_get_info``).  None when the
+    card runs out of memory.  Everything the probe made is freed before it
+    returns."""
     import torch
 
     from ..engine.optimize import StyleEngine, resolve_device
@@ -204,7 +220,8 @@ def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str
         raise RuntimeError("the measured probe reads the CUDA allocator's peak: it needs a CUDA device")
     bf16 = _bf16(compute_dtype)
     torch.cuda.synchronize(dev)
-    base = torch.cuda.memory_allocated(dev)
+    base, base_reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    free = torch.cuda.mem_get_info(dev)[0]
     torch.cuda.reset_peak_memory_stats(dev)
     engine = None
     try:
@@ -219,7 +236,8 @@ def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str
         style = np.ascontiguousarray(content[:, ::-1])
         engine.optimize(content, [style], content, 2)
         torch.cuda.synchronize(dev)
-        return int(torch.cuda.max_memory_allocated(dev) - base)
+        return {"allocated": int(torch.cuda.max_memory_allocated(dev) - base),
+                "reserved": int(torch.cuda.max_memory_reserved(dev) - base_reserved), "free": int(free)}
     except torch.cuda.OutOfMemoryError:
         return None
     finally:
@@ -227,6 +245,15 @@ def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str
         gc.collect()
         torch.cuda.empty_cache()
 
+
+def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str = "bfloat16",
+                       lbfgs_method: str = "compact", device=None) -> int | None:
+    """The measured search's probe: ``measure_step``'s ``reserved`` peak,
+    what the allocator took from the device (held to the free memory), or
+    None when the card runs out of memory.  ``fit_constants`` fits the
+    ``allocated`` peaks that ``measure_step`` also returns."""
+    got = measure_step(model, optimizer, size, compute_dtype, lbfgs_method, device)
+    return None if got is None else got["reserved"]
 
 def fit_constants(rows, lbfgs_history: int = 100) -> dict:
     """``CONSTANTS`` fitted to measured peaks: ``rows`` of (model,
@@ -299,6 +326,28 @@ def hbm_bytes(device=None) -> int:
     return int(torch.cuda.get_device_properties(dev).total_memory)
 
 
+def search_budget_bytes(device=None) -> int:
+    """The measured search's budget: the device's free memory at the
+    search's start (``torch.cuda.mem_get_info``), after the caching
+    allocator has handed back the blocks it holds unused.  Unlike
+    ``total_memory`` it leaves out the CUDA context, the cuDNN and cuBLAS
+    handles and whatever the process keeps alive, so a size the search
+    calls safe also fits in a process that ran other work first.  The
+    search holds each probe's ``reserved`` peak to it: what the allocator
+    took from the device, its blocks' rounding and splits included.  A
+    CUDA device is required (CUDA device 0 unless another is named)."""
+    import torch
+
+    from ..engine.optimize import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the measured search's budget is a CUDA device's free memory: it needs a CUDA device")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return int(torch.cuda.mem_get_info(dev)[0])
+
+
 def probe_max_sizes(
     models=DEFAULT_MODELS,
     optimizers=DEFAULT_OPTIMIZERS,
@@ -318,8 +367,11 @@ def probe_max_sizes(
     lands within a rung or two of the x32 boundary.  A probe that fails
     without a footprint (out of memory) counts as over budget."""
     if devices > 1:
-        raise NotImplementedError("multi-device probes are not ported yet (ROADMAP item 18)")
-    budget = budget_bytes if budget_bytes is not None else hbm_bytes()
+        raise NotImplementedError("multi-device probes are not ported yet (ROADMAP item 18g)")
+    if budget_bytes is not None:
+        budget = budget_bytes
+    else:  # the measured search runs in this process: what is free here; the estimate sizes a whole card
+        budget = search_budget_bytes() if method == "analysis" else hbm_bytes()
 
     def probe_bytes(model, optimizer, size):
         """Footprint at ``size`` in bytes, or None if the probe failed
@@ -412,9 +464,10 @@ def main(argv=None):
                     help="estimate: the analytic footprint; analysis: a measured probe on the card")
     ap.add_argument("--models", default=",".join(DEFAULT_MODELS))
     ap.add_argument("--optimizers", default=",".join(DEFAULT_OPTIMIZERS))
-    ap.add_argument("--devices", type=int, default=1, help="one device only (multi-device is ROADMAP item 18)")
+    ap.add_argument("--devices", type=int, default=1, help="one device only (multi-device probes are ROADMAP item 18g)")
     ap.add_argument("--hbm_gb", type=float, default=None,
-                    help="override the device memory budget (default: CUDA device 0's)")
+                    help="override the device memory budget (default: CUDA device 0's whole memory for "
+                         "the estimate, its free memory for the measured search)")
     ap.add_argument("--compute_dtype", default="bfloat16",
                     help="dtype of the probed step (bfloat16 also stores L-BFGS histories in bf16, as the engine does)")
     ap.add_argument("--seed_from", default=None,
@@ -442,7 +495,7 @@ def main(argv=None):
         seed_table=seed_table,
     )
     gb = round((budget or hbm_bytes()) / 1024 ** 3)
-    out = args.out or f"configs/max-sizes-{gb}GB-{args.devices}chip.json"
+    out = args.out or default_table_path(gb, args.devices)
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     with open(out, "w") as f:
         json.dump(table, f, indent=2)

@@ -227,8 +227,51 @@ def test_missing_checkpoints_fail_loud(monkeypatch, tmp_path):
         cv._load_clip("ViT-B/32")
     with pytest.raises(FileNotFoundError, match="allow_random_weights"):
         cv.main(["--content", "random", "--style_text", "x", "--gpu", "c"])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        cv.main(["--content", "random", "--download_weights", "--gpu", "c"])
+    with pytest.raises(FileNotFoundError, match="no source for RN101"):
+        cv._load_clip("RN101")
+
+
+class _Asked(Exception):
+    pass
+
+
+@pytest.mark.parametrize("backbone", ["ViT-B/32", "RN50", "RN101", "RN50x4"])
+@pytest.mark.parametrize("vqgan_dir", ["imagenet_16384", "some/local_dir"])
+def test_download_weights_names(monkeypatch, tmp_path, backbone, vqgan_dir):
+    """``--download_weights`` asks ``io/download.ensure_weights`` for the
+    backbone's CLIP checkpoint, the BPE vocabulary and the VQGAN checkpoint
+    when ``vqgan_dir`` names a source.  JAX's CLI asks for the same names
+    for ViT-B/32 and RN50; for RN101 it asks for ViT-B/32's file and for
+    RN50x4 for RN50's, neither of which those backbones read: the port
+    asks for no CLIP file there (none has a source), and ``_load_clip``
+    names the one that stays missing."""
+    from maua_style_tpu.io import download as jax_dl
+    from maua_style_tpu_torch.io import download as dl
+
+    monkeypatch.chdir(tmp_path)
+    asked = {}
+
+    def stub(key):
+        def ensure_weights(names, enabled=True):
+            asked[key] = list(names)
+            raise _Asked
+
+        return ensure_weights
+
+    monkeypatch.setattr(dl, "ensure_weights", stub("port"))
+    monkeypatch.setattr(jax_dl, "ensure_weights", stub("jax"))
+    argv = ["--content", "random", "--style_text", "x", "--download_weights", "--clip_backbone", backbone,
+            "--vqgan_dir", vqgan_dir]
+    with pytest.raises(_Asked):
+        cv.main([*argv, "--gpu", "c"])
+    with pytest.raises(_Asked):
+        jax_cv.main(argv)
+    tail = ["bpe_vocab"] + (["imagenet_16384"] if vqgan_dir == "imagenet_16384" else [])
+    assert asked["port"] == {"ViT-B/32": ["clip_vitb32"], "RN50": ["clip_rn50"]}.get(backbone, []) + tail
+    if backbone in ("ViT-B/32", "RN50"):
+        assert asked["port"] == asked["jax"]
+    else:
+        assert asked["jax"] == [{"RN101": "clip_vitb32", "RN50x4": "clip_rn50"}[backbone]] + tail
 
 
 def test_gpu_is_the_default(monkeypatch):

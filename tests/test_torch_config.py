@@ -54,10 +54,43 @@ def test_no_cuda_raises_without_gpu_c(monkeypatch):
         StyleEngine(spec, init_params(spec), cfg)
 
 
-@pytest.mark.parametrize("argv", [["--gpu", "c", "--mesh", "space:2"], ["--gpu", "0,1"]])
-def test_multi_device_raises(argv):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        config.get_args(argv)
+def _cards(monkeypatch, n):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+
+
+def test_gpu_c_mesh_gives_cpu_entries():
+    """``--gpu c --mesh space:2``: two CPU entries, JAX's axes."""
+    args = config.get_args(["--gpu", "c", "--mesh", "space:2"])
+    assert args.devices == [torch.device("cpu")] * 2 and args.device == torch.device("cpu")
+    assert args.mesh_shape == [("space", 2)] == jax_config.get_args(["--gpu", "c", "--mesh", "space:2"]).mesh_shape
+
+
+def test_multi_gpu_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--gpu c"):
+        config.get_args(["--gpu", "0,1"])
+
+
+def test_missing_card_id_raises(monkeypatch):
+    """A card id past the visible ones raises (JAX drops it and carries on
+    with the rest, config.py:285-288: a hidden fallback the port does not
+    copy)."""
+    _cards(monkeypatch, 1)
+    with pytest.raises(RuntimeError, match="only 1 CUDA device"):
+        config.get_args(["--gpu", "0,1"])
+    assert len(jax_config.setup_devices(argparse.Namespace(gpu="0,99", mesh=None))[0]) == 1
+
+
+@pytest.mark.parametrize("mesh", [None, "space:2", "frames:2", "space:4", "frames:2,space:2", "frames:4", "space:1"])
+def test_oversized_mesh_shrinks_as_jax(monkeypatch, mesh):
+    """``--gpu 0,1`` with each ``--mesh``: the port's axes are JAX's
+    (config.py:255-303; a mesh larger than the devices shrinks to
+    space:len(devices)); no CUDA call is made."""
+    _cards(monkeypatch, 2)
+    devices, axes = config.setup_devices(argparse.Namespace(gpu="0,1", mesh=mesh))
+    assert devices == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert axes == jax_config.setup_devices(argparse.Namespace(gpu="0,1", mesh=mesh))[1]
 
 
 def test_single_device_mesh_accepted():

@@ -225,3 +225,53 @@ def test_fit_recovers_the_constants(monkeypatch):
     for m in ("compact", "two_loop"):
         assert got["lbfgs"][m] == pytest.approx(want["lbfgs"][m], rel=1e-4)
     assert got["arch_fudge"]["prune"] == pytest.approx(1.3, rel=1e-3)
+
+
+def test_default_out_is_the_ports_configs(monkeypatch, tmp_path):
+    """Without ``--out`` the CLI writes under the port's ``configs/`` with
+    JAX's file name, never into the repository's top-level ``configs/``
+    (the JAX package's tables), which stays byte-identical."""
+    import hashlib
+    import os
+
+    top = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(ms.__file__))), "..", "configs")
+    top = os.path.normpath(top)
+    assert not os.path.normpath(ms.default_table_path(16)).startswith(top + os.sep)
+    assert ms.default_table_path(79) == os.path.join(ms.TABLE_DIR, "max-sizes-79GB-1chip.json")
+    assert ms.TABLE_DIR.endswith(os.path.join("maua_style_tpu_torch", "configs"))
+
+    def digest():
+        return {f: hashlib.sha256(open(os.path.join(top, f), "rb").read()).hexdigest() for f in sorted(os.listdir(top))}
+
+    before = digest()
+    monkeypatch.setattr(ms, "TABLE_DIR", str(tmp_path))  # the test writes no table into the package
+    ms.main(["--method", "estimate", "--hbm_gb", "16"])
+    assert digest() == before
+    assert len(json.loads((tmp_path / "max-sizes-16GB-1chip.json").read_text())) == 12
+
+
+def test_search_budget_follows_free_memory(monkeypatch):
+    """The measured search's budget is the free memory at its start, not
+    the card's total: a process that ran other work first gets a smaller
+    budget; each probe is held to it by the allocator's reserved peak."""
+    free = {"bytes": 70 * GIB}
+    emptied = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: emptied.append(1))
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free["bytes"], 80 * GIB))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 2 * GIB)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: argparse.Namespace(total_memory=80 * GIB))
+    assert ms.search_budget_bytes() == 70 * GIB and emptied
+    free["bytes"] = 30 * GIB
+    assert ms.search_budget_bytes() == 30 * GIB
+    assert ms.hbm_bytes() == 80 * GIB  # the estimate still sizes the whole card
+
+    def probe(model, optimizer, size, *a, **_):  # the allocator's peaks: what tensors took, and what it reserved
+        return {"allocated": size * size * 500, "reserved": size * size * 1000, "free": free["bytes"]}
+
+    monkeypatch.setattr(ms, "measure_step", probe)
+    entry = ms.probe_max_sizes(models=("vgg19",), optimizers=("adam",), method="analysis", verbose=False)["vgg19,adam,1"]
+    assert entry["budget_gb"] == 30.0
+    safe = entry["safe_max_size"]
+    assert safe * safe * 1000 <= 30 * GIB < (safe + 32) ** 2 * 1000
