@@ -28,16 +28,20 @@ gradient normalisation and optimiser state.  ``optimize_frame_chain``
 keeps JAX's signature and results, but where JAX runs one ``lax.scan``
 program it loops over ``optimize_frame`` on the host.
 
-A mesh (``mesh=``, ``parallel/mesh.py``): on a "space" axis img_img's
-pastiche is cut into row bands, one per device (``parallel/spatial.py``),
-and every iteration runs the bands' forward with halo rows, the losses
-from per-band sums (``losses.evaluate_banded_losses``, K1 per band) and the
-optimiser band by band; the result, the ``save_iter`` snapshots and the
-run-state checkpoints are gathered to the single-device layout.  On a
-"frames" axis ``optimize_frames`` shares a chunk's frames out to the
-devices, each with its own copy of the extractor and the style targets
-and its own stacked step, the host issuing every device's iteration in
-turn.  The per-frame and chained passes run on the first device, as JAX's
+A mesh (``mesh=``, ``parallel/mesh.py``): on a "space" axis a pastiche
+(img_img's, a vid_img frame's, or a stack of frames) is cut into row
+bands, one per device (``parallel/spatial.py``), and every iteration runs
+the bands' forward with halo rows, the losses from per-band sums
+(``losses.evaluate_banded_losses``, K1 per band over the whole stack) and
+the optimiser band by band; a frame's set-up (preprocess, histogram
+match, the warp of the previous frame, the init) runs whole on the first
+device and is then split, and the result, the ``save_iter`` snapshots and
+the run-state checkpoints are gathered to the single-device layout.  On a
+"frames" axis ``optimize_frames`` shares a chunk's frames out to the rows
+of the mesh (``parallel.mesh_rows``: one device, or with "space" too a
+row of bands), each row with its own copy of the extractor and the style
+targets and its own stacked step, the host issuing every row's iteration
+in turn.  The per-frame and chained passes run on the first row, as JAX's
 frames-stripped programs do.  Other paths on a mesh of several devices
 raise ``NotImplementedError`` naming their ROADMAP item.
 
@@ -68,12 +72,13 @@ from ..losses import (
     evaluate_banded_losses,
     evaluate_frame_losses,
     evaluate_losses,
+    frame_slice,
 )
 from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
-from ..parallel import frame_shards, sharding_for, spatial
+from ..parallel import build_mesh, frame_shards, mesh_rows, sharding_for, spatial
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
@@ -139,12 +144,10 @@ class StyleEngine:
         # the pastiche's plan on the mesh (``parallel.sharding_for``): its
         # spec names the axis that shards each NCHW dim
         self.sharding = sharding_for(mesh)
-        frames_axis, tensor_axis, space_axis, _ = self.sharding.spec if self.sharding else (None,) * 4
+        _, tensor_axis, space_axis, _ = self.sharding.spec if self.sharding else (None,) * 4
         if self.sharding is not None:
             if tensor_axis:
                 raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e")
-            if frames_axis and space_axis:
-                raise NotImplementedError(f"mesh {mesh.axes}: combined 'frames' and 'space' axes are ROADMAP item 18f")
             device = mesh.devices[0]
             for d in mesh.devices:
                 resolve_device(d)
@@ -152,8 +155,9 @@ class StyleEngine:
         self.device = resolve_device(device)
         self.loss_cfg = loss_cfg
         self.spec = truncate_spec(spec, loss_cfg.all_layers)
-        # "space": the bands' devices and the rows a band boundary is a multiple of
-        self.band_devices = list(mesh.devices) if space_axis else None
+        # "space": the bands' devices (the first row's with a "frames" axis
+        # too) and the rows a band boundary is a multiple of
+        self.band_devices = list(mesh_rows(mesh)[0]) if space_axis else None
         self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
         self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
         self.optimizer_name = optimizer
@@ -167,48 +171,54 @@ class StyleEngine:
         # one capture per engine (engines live per scale); per-frame callers
         # pass the same style images every call
         self._style_target_cache: dict[Any, dict] = {}
-        self._replicas: dict[torch.device, StyleEngine] = {}
+        self._replicas: dict[tuple[torch.device, ...], StyleEngine] = {}
 
     def _extract(self, x: torch.Tensor, layers: Sequence[str]) -> dict[str, torch.Tensor]:
         return self.extractor(x.to(self.compute_dtype), layers)
 
     def _extract_bands(self, bands: Sequence[torch.Tensor], layers: Sequence[str]) -> dict[str, list]:
-        extractors = [self._replica(b.device).extractor for b in bands]
+        extractors = [self._replica((b.device,)).extractor for b in bands]
         return spatial.banded_forward(extractors, [b.to(self.compute_dtype) for b in bands], layers)
 
-    def _replica(self, device) -> "StyleEngine":
-        """This engine's copy on ``device`` (a mesh's other device): the
-        extractor's weights and the settings, no mesh; the engine itself on
-        its own device."""
-        device = torch.device(device)
-        if device == self.device:
+    def _replica(self, row: tuple) -> "StyleEngine":
+        """This engine's copy on a row of devices (one band's device, or a
+        "frames" share of the mesh, its "space" devices): the extractor's
+        weights and the settings, on a row of several a "space" mesh of its
+        own; the engine itself where it already runs."""
+        row = tuple(torch.device(d) for d in row)
+        if row in ((self.device,), tuple(self.band_devices or ())):
             return self
-        if device not in self._replicas:
-            self._replicas[device] = StyleEngine(
+        if row not in self._replicas:
+            self._replicas[row] = StyleEngine(
                 self.spec, self.extractor.state_dict(), self.loss_cfg, optimizer=self.optimizer_name,
                 learning_rate=self.learning_rate, lbfgs_history=self.lbfgs_history, lbfgs_method=self.lbfgs_method,
                 precision=self.precision, normalize_weights=self.normalize_weights, compute_dtype=self.compute_dtype,
-                device=device,
+                device=row[0], mesh=build_mesh(row, [("space", len(row))]) if len(row) > 1 else None,
             )
-        return self._replicas[device]
-
-    def _one_device(self, what: str, item: str) -> None:
-        """Raise for a path that a "space" mesh does not shard."""
-        if self.band_devices:
-            raise NotImplementedError(f"{what} on a 'space' mesh ({self.mesh.axes}) is ROADMAP item {item}")
+        return self._replicas[row]
 
     # -- target capture ----------------------------------------------------
 
     def content_targets(self, content) -> dict:
         """The content activations of a (1, H, W, 3) image; on a "space"
         mesh a list of each band's, captured band by band."""
-        x = to_nchw(content, self.device)
+        return self._content_targets(to_nchw(content, self.device))
+
+    def _content_targets(self, x: torch.Tensor) -> dict:
+        """``content_targets`` of a (B, 3, H, W) tensor on the device."""
         if not self.band_devices:
             return capture_content_targets(self._extract, x, self.loss_cfg)
         split, _ = self._band_layout(x.shape)
         with torch.no_grad():
             acts = self._extract_bands(split(x), self.loss_cfg.content_layers)
         return {l: [a.float() for a in acts[l]] for l in self.loss_cfg.content_layers}
+
+    def _temporal_targets(self, warped: torch.Tensor, weights: torch.Tensor | None) -> dict:
+        """The temporal target, a whole warped image (a flow moves pixels
+        across band boundaries, so the warp never runs band by band), and
+        its (1, 1, H, W) reliability weights; on a "space" mesh each then
+        cut into bands."""
+        return {k: self._band_layout(v.shape)[0](v) for k, v in capture_temporal_targets(warped, weights).items()}
 
     def style_targets(self, styles: Sequence, blend_weights: Sequence[float]) -> dict[str, torch.Tensor]:
         # content-addressed cache of the blended Gram targets
@@ -244,14 +254,12 @@ class StyleEngine:
             return ()
         scale = []
         for l, t in targets.get("content", {}).items():
-            # bands: the whole image's rows
-            shape = (*t[0].shape[:2], sum(x.shape[2] for x in t), t[0].shape[3]) if isinstance(t, list) else t.shape
-            scale.append((f"content:{l}", 1.0 / max(shape)))
+            scale.append((f"content:{l}", 1.0 / max(_whole_shape(t))))
         for l, t in targets.get("style", {}).items():
             scale.append((f"style:{l}", 1.0 / max(t.shape)))
         temporal = targets.get("temporal")
         if temporal is not None:
-            scale.append(("temporal", 1.0 / max(temporal["target"].shape)))
+            scale.append(("temporal", 1.0 / max(_whole_shape(temporal["target"]))))
         return tuple(scale)
 
     # -- the optimisation loop ---------------------------------------------
@@ -277,9 +285,10 @@ class StyleEngine:
         A list ``pastiche`` is a banded one ("space" mesh): the bands' forward
         and ``evaluate_banded_losses``, the optimiser over the bands.
 
-        ``frames``: the pastiche stacks independent frames (vid_img's first
-        pass, ``optimize_frames``); the losses are each frame's own
-        (``evaluate_frame_losses``) and the log is (n_iters, B, n_losses).
+        ``frames``: the pastiche (or each band) stacks independent frames
+        (vid_img's first pass, ``optimize_frames``); the losses are each
+        frame's own (``evaluate_frame_losses``) and the log is (n_iters, B,
+        n_losses).
 
         img_vid's window runners (JAX optimize.py:235-341): ``mask``, a
         (T, 1, 1, 1) tensor, multiplies the gradient before the optimiser
@@ -294,7 +303,7 @@ class StyleEngine:
         logs = []
         banded = isinstance(pastiche, list)
         extract = self._extract_bands if banded else self._extract
-        evaluate = evaluate_banded_losses if banded else evaluate_frame_losses if frames else evaluate_losses
+        evaluate = evaluate_frame_losses if frames else evaluate_banded_losses if banded else evaluate_losses
         p, fixed = pastiche, None
         if frozen is not None:
             fo, eo = frozen
@@ -395,8 +404,6 @@ class StyleEngine:
             raise ValueError(f"unknown transfer_type {transfer_type!r}")
         if transfer_type == "img_vid" and self.mesh is not None:
             raise NotImplementedError(f"img_vid's windows on a mesh ({self.mesh.axes}) are ROADMAP item 18c")
-        if transfer_type == "vid_img" or temporal_target is not None or temporal_warp is not None:
-            self._one_device("vid_img's per-frame passes", "18b")
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         targets = {"content": self.content_targets(content)}
@@ -404,9 +411,9 @@ class StyleEngine:
         if temporal_warp is not None:
             src, wmap = temporal_warp
             warped = grid_sample(to_nchw(src, self.device), _on(np.asarray(wmap, np.float32), self.device))
-            targets["temporal"] = capture_temporal_targets(warped, weights)
+            targets["temporal"] = self._temporal_targets(warped, weights)
         elif temporal_target is not None:
-            targets["temporal"] = capture_temporal_targets(to_nchw(temporal_target, self.device), weights)
+            targets["temporal"] = self._temporal_targets(to_nchw(temporal_target, self.device), weights)
         if transfer_type == "img_vid":
             if gram_frame_window is None:
                 raise ValueError("img_vid needs gram_frame_window")
@@ -446,7 +453,7 @@ class StyleEngine:
         return to_nhwc(gather(pastiche))
 
     def _band_layout(self, shape) -> tuple[Callable, Callable]:
-        """(split, gather) of a (1, C, H, W) pastiche-sized tensor, or of a
+        """(split, gather) of a (B, C, H, W) pastiche-sized tensor, or of a
         flat state entry, between the single-device layout and the row
         bands of a "space" mesh; both the identity without one."""
         if not self.band_devices:
@@ -582,7 +589,12 @@ class StyleEngine:
         u8 preprocess and resize, histogram match, content target, the
         flow-warped temporal target, the init (``content``, ``random``,
         ``warp_prev`` or ``blend``), ``num_iters`` iterations, the output
-        histogram match and the u8 display image.
+        histogram match and the u8 display image.  On a "space" mesh (the
+        first row's bands with a "frames" axis too) the set-up, the warp and
+        the init run whole on the first device and are then cut into bands;
+        the content target is captured band by band, the iterations run on
+        the bands, and the result is gathered before the output histogram
+        match.
 
         ``prev``: the previous frame's pastiche, a (1, 3, h, w) tensor (or a
         (1, h, w, 3) host array), resized if it comes from a smaller scale.
@@ -590,13 +602,12 @@ class StyleEngine:
         Returns ``(pastiche (1, 3, h, w), display (h, w, 3) uint8)``, both
         on the device; ``last_loss_log`` is the (num_iters, n_losses) log,
         also on the device."""
-        self._one_device("vid_img's per-frame passes", "18b")
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         c = self._frame_content(_on(content_u8, dev), out_hw, content_scale, hist_stats)
         targets = {"style": self.style_targets(styles, blend_weights),
-                   "content": capture_content_targets(self._extract, c, self.loss_cfg)}
+                   "content": self._content_targets(c)}
         # the strength scale leaves the temporal term out, as the JAX frame
         # program's does (its key is built from the content image and style)
         scale = dict(self._strength_scale(targets))
@@ -610,7 +621,7 @@ class StyleEngine:
             wts = None
             if weights_u8 is not None:
                 wts = resize_bilinear(_on(weights_u8, dev).float()[None, None] / 255.0, size=out_hw)
-            targets["temporal"] = capture_temporal_targets(grid_sample(prev, wmap), wts)
+            targets["temporal"] = self._temporal_targets(grid_sample(prev, wmap), wts)
 
         if init_mode == "content":
             p0 = c
@@ -628,7 +639,10 @@ class StyleEngine:
             raise ValueError(f"unknown init_mode {init_mode!r}")
 
         opt = self._make_optimizer()
+        split, gather = self._band_layout(p0.shape)
+        p0 = split(p0)
         p, _, log = self._run(p0, opt, opt.init(p0), targets, scale, int(num_iters))
+        p = gather(p)
         out = match_histogram_device(p, *hist_stats) if hist_stats is not None else p
         self.last_loss_log = log
         return out, deprocess_to_u8(out)
@@ -654,31 +668,31 @@ class StyleEngine:
         random init drawn from its own seed as ``optimize_frame`` draws it,
         and its losses, gradient normalisation and optimiser state are its
         own; the style targets are shared.  ``last_loss_log`` is
-        (B, num_iters, n_losses).  On a "frames" mesh each device takes
-        its share of the frames (``parallel.frame_shards``; a chunk the
-        axis does not divide runs here), and the results come back to the
-        first device."""
+        (B, num_iters, n_losses).  On a "space" mesh each band holds all B
+        frames' rows.  On a "frames" mesh each row of the mesh takes its
+        share of the frames (``parallel.frame_shards``; a chunk the axis
+        does not divide runs on the first row), and the results come back
+        to the first device."""
         if init_mode not in ("content", "random"):
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
-        self._one_device("vid_img's stacked first pass", "18b")
         contents_u8 = np.asarray(contents_u8)
         seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         kw = dict(out_hw=tuple(int(v) for v in out_hw), content_scale=content_scale, blend_weights=blend_weights,
                   init_mode=init_mode, hist_stats=hist_stats)
         shards = frame_shards(self.sharding, len(contents_u8))
-        if shards is None:  # one device, or a chunk the frames axis does not divide
+        if shards is None:  # no "frames" axis, or a chunk it does not divide
             pastiches, displays, log = _drain(self._frames_job(contents_u8, styles, num_iters, seeds, **kw))
         else:
-            # each device's share with its own extractor copy and style
-            # targets (captured once, here, and copied); the host enqueues
-            # one iteration of every device's step in turn
+            # each row's share with its own extractor copy and style targets
+            # (captured once, here, and copied); the host enqueues one
+            # iteration of every row's step in turn
             self.style_targets(styles, blend_weights)
             jobs = []
-            for dev, part in shards:
-                replica = self._replica(dev)
+            for row, part in shards:
+                replica = self._replica(row)
                 if replica is not self:
-                    replica._style_target_cache = {k: {l: t.to(dev) for l, t in v.items()}
+                    replica._style_target_cache = {k: {l: t.to(replica.device) for l, t in v.items()}
                                                    for k, v in self._style_target_cache.items()}
                 jobs.append(replica._frames_job(contents_u8[part], styles, num_iters, seeds[part], **kw))
             outs = _drain_all(jobs)
@@ -688,19 +702,21 @@ class StyleEngine:
 
     def _frames_job(self, contents_u8, styles, num_iters, seeds, *, out_hw, content_scale, blend_weights, init_mode,
                     hist_stats):
-        """``optimize_frames``'s work on this engine's device, a generator
-        that yields after each iteration; returns (pastiches, displays,
-        log (B, num_iters, n_losses))."""
+        """``optimize_frames``'s work on this engine's device (on a "space"
+        mesh its bands), a generator that yields after each iteration;
+        returns (pastiches, displays, log (B, num_iters, n_losses))."""
         u8 = _on(contents_u8, self.device)  # the chunk goes up at once
         c = torch.cat([self._frame_content(f, out_hw, content_scale, hist_stats) for f in u8])
-        targets = {"style": self.style_targets(styles, blend_weights),
-                   "content": capture_content_targets(self._extract, c, self.loss_cfg)}
-        # one frame's shapes, as optimize_frame's scale sees them
+        targets = {"style": self.style_targets(styles, blend_weights), "content": self._content_targets(c)}
+        # one frame's unbanded shapes, as optimize_frame's scale sees them
         scale = dict(self._strength_scale({"style": targets["style"],
-                                           "content": {l: t[:1] for l, t in targets["content"].items()}}))
+                                           "content": {l: frame_slice(t, 0) for l, t in targets["content"].items()}}))
         p0 = c if init_mode == "content" else torch.cat([self._noise(seed, out_hw) for seed in seeds])
+        split, gather = self._band_layout(p0.shape)
+        p0 = split(p0)
         opt = self._make_optimizer(frames=True)
         p, _, log = yield from self._steps(p0, opt, opt.init(p0), targets, scale, int(num_iters), frames=True)
+        p = gather(p)
         outs = [match_histogram_device(f, *hist_stats) if hist_stats is not None else f for f in p.split(1)]
         return torch.stack(outs), torch.stack([deprocess_to_u8(o) for o in outs]), log.transpose(0, 1)
 
@@ -763,6 +779,13 @@ class StyleEngine:
 
 def _same(x):
     return x
+
+
+def _whole_shape(t) -> tuple[int, ...]:
+    """A target's shape, or for a banded one (a list) the whole image's."""
+    if isinstance(t, list):
+        return (*t[0].shape[:2], sum(x.shape[2] for x in t), t[0].shape[3])
+    return tuple(t.shape)
 
 
 def _drain(gen):

@@ -17,9 +17,11 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
   160-170).
 - tv: anisotropic L1 total variation (loss.py:224-233).
 - ``evaluate_frame_losses``: vid_img's stacked first pass, a batch of
-  independent frames, each frame's values its own ``evaluate_losses``.
-- ``evaluate_banded_losses``: img_img's pastiche cut into row bands over a
-  "space" mesh, the same values from per-band sums.
+  independent frames, each frame's values its own ``evaluate_losses`` (or,
+  cut into row bands, its own ``evaluate_banded_losses``).
+- ``evaluate_banded_losses``: a pastiche cut into row bands over a
+  "space" mesh (img_img, vid_img's frames), the same values from per-band
+  sums.
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
@@ -54,9 +56,14 @@ def scale_gradients(x: torch.Tensor, strength: float) -> torch.Tensor:
     return _ScaleGradients.apply(x, strength)
 
 
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in an accumulation type: f32 for bf16 activations (and f32),
+    f64 kept."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    # accumulate in f32 even for bf16 activations
-    return torch.mean(torch.square(a.float() - b.float()))
+    return torch.mean(torch.square(_acc(a) - _acc(b)))
 
 
 def _term(value: torch.Tensor, strength: float, frames: int, normalize: bool) -> torch.Tensor:
@@ -249,8 +256,8 @@ def _norm_gram(a: torch.Tensor, cfg: LossConfig) -> torch.Tensor:
 
 
 def evaluate_frame_losses(
-    pastiche: torch.Tensor,
-    acts: dict[str, torch.Tensor],
+    pastiche,
+    acts: dict,
     targets: dict[str, Any],
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
@@ -259,19 +266,30 @@ def evaluate_frame_losses(
     content (and temporal) target and one shared style target: frame i's
     values are ``evaluate_losses`` of frame i alone (its terms' gradients
     normalised on their own), and each style layer's Grams are one
-    ``batch_gram`` over the stack.  Returns (sum over frames, (B, n_losses))."""
-    grams = {l: _norm_gram(acts[l], cfg) for l in cfg.style_layers if l in targets.get("style", {})}
+    ``batch_gram`` over the stack.  A stack cut into row bands (a list of
+    (B, C, h_i, W) bands, targets and activations as lists; a "space"
+    mesh) gives frame i ``evaluate_banded_losses`` of its rows in every
+    band, and each style layer's Grams are one ``banded_gram`` over the
+    stack.  Returns (sum over frames, (B, n_losses))."""
+    banded = isinstance(pastiche, list)
+    evaluate, norm_gram = (evaluate_banded_losses, _banded_norm_gram) if banded else (evaluate_losses, _norm_gram)
+    grams = {l: norm_gram(acts[l], cfg) for l in cfg.style_layers if l in targets.get("style", {})}
     totals, pers = [], []
-    for i in range(pastiche.shape[0]):
+    for i in range((pastiche[0] if banded else pastiche).shape[0]):
         one = dict(targets)
-        one["content"] = {l: t[i : i + 1] for l, t in targets.get("content", {}).items()}
+        one["content"] = {l: frame_slice(t, i) for l, t in targets.get("content", {}).items()}
         if targets.get("temporal") is not None:
-            one["temporal"] = {k: t[i : i + 1] for k, t in targets["temporal"].items()}
-        total, per = evaluate_losses(pastiche[i : i + 1], {l: a[i : i + 1] for l, a in acts.items()}, one, cfg,
-                                     strength_scale, {l: g[i : i + 1] for l, g in grams.items()})
+            one["temporal"] = {k: frame_slice(t, i) for k, t in targets["temporal"].items()}
+        total, per = evaluate(frame_slice(pastiche, i), {l: frame_slice(a, i) for l, a in acts.items()}, one, cfg,
+                              strength_scale, {l: g[i : i + 1] for l, g in grams.items()})
         totals.append(total)
         pers.append(per)
     return torch.stack(totals).sum(), torch.stack(pers)
+
+
+def frame_slice(x, i: int):
+    """Frame ``i`` of a stack, or of each band of a banded one."""
+    return [b[i : i + 1] for b in x] if isinstance(x, list) else x[i : i + 1]
 
 
 def banded_tv_loss(bands) -> torch.Tensor:
@@ -282,21 +300,38 @@ def banded_tv_loss(bands) -> torch.Tensor:
     return sum_on(bands[0].device, [tv_loss(x) for x in bands] + across)
 
 
+def _banded_norm_gram(bands, cfg: LossConfig) -> torch.Tensor:
+    """Per-frame Grams of a banded stack / each frame's whole nelement."""
+    rows = sum(x.shape[2] for x in bands)
+    return banded_gram(bands, cfg.use_covariance) / (bands[0].shape[1] * rows * bands[0].shape[3])
+
+
+def _banded_mse(xs, ts) -> torch.Tensor:
+    """The MSE of a frame cut into bands against its banded target: per-band
+    sums of squares summed on the first band's device, over the whole
+    count."""
+    sq = sum_on(xs[0].device, [torch.sum(torch.square(_acc(x) - _acc(t))) for x, t in zip(xs, ts)])
+    return sq / sum(x.numel() for x in xs)
+
+
 def evaluate_banded_losses(
     bands: Sequence[torch.Tensor],
     acts: dict[str, list],
     targets: dict[str, Any],
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
+    grams: dict[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``evaluate_losses`` of one (1, 3, H, W) pastiche cut into row bands
-    (``parallel/spatial.py``; img_img on a "space" mesh): ``acts`` and the
-    content targets hold one tensor per band.  Each term is built once, on
-    the first band's device, from sums over the bands divided by the whole
-    image's counts: the content MSE, the style MSE of the summed Gram
-    (``banded_gram``, K1 per band), TV with the pairs across the
-    boundaries.  Gradient normalisation then acts on each term's one
-    scalar, as it does unbanded.  No temporal term (vid_img)."""
+    (``parallel/spatial.py``; a "space" mesh): ``acts``, the content
+    targets and the temporal target and weights hold one tensor per band.
+    Each term is built once, on the first band's device, from sums over
+    the bands divided by the whole image's counts: the content MSE, the
+    style MSE of the summed Gram (``banded_gram``, K1 per band), TV with
+    the pairs across the boundaries, the temporal MSE of pastiche·weights
+    against the warped target.  Gradient normalisation then acts on each
+    term's one scalar, as it does unbanded.  ``grams``: the style layers'
+    normalised Grams of ``acts``, where the caller has them."""
     dev = bands[0].device
     scale = strength_scale or {}
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -307,8 +342,7 @@ def evaluate_banded_losses(
         strength = cfg.content_weight * scale.get(f"content:{l}", 1.0)
         v = zero
         if l in content_targets:
-            sq = sum_on(dev, [torch.sum(torch.square(a.float() - t.float())) for a, t in zip(acts[l], content_targets[l])])
-            v = _term(sq / sum(a.numel() for a in acts[l]), strength, 1, cfg.normalize_gradients)
+            v = _term(_banded_mse(acts[l], content_targets[l]), strength, 1, cfg.normalize_gradients)
         values.append(v)
 
     style_targets = targets.get("style", {})
@@ -316,18 +350,21 @@ def evaluate_banded_losses(
         strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
         v = zero
         if l in style_targets:
-            a = acts[l]
-            nelement = a[0].shape[1] * sum(x.shape[2] for x in a) * a[0].shape[3]
-            g = banded_gram(a, cfg.use_covariance) / nelement
+            g = grams[l] if grams is not None else _banded_norm_gram(acts[l], cfg)
             v = _term(_mse(g[0], style_targets[l]), strength, 1, cfg.normalize_gradients)
         values.append(v)
 
     if cfg.tv_weight > 0:
         values.append(cfg.tv_weight * banded_tv_loss(bands))
     if cfg.temporal_weight > 0:
-        if targets.get("temporal") is not None:
-            raise NotImplementedError("a temporal target on a 'space' mesh is vid_img's (ROADMAP item 18b)")
-        values.append(zero)
+        strength = cfg.temporal_weight * scale.get("temporal", 1.0)
+        v = zero
+        temporal = targets.get("temporal")
+        if temporal is not None:
+            w = temporal.get("weights")
+            inp = [b * wb for b, wb in zip(bands, w)] if w is not None else bands
+            v = _term(_banded_mse(inp, temporal["target"]), strength, 1, cfg.normalize_gradients)
+        values.append(v)
 
     per = torch.stack(values)
     return per.sum(), per
@@ -344,5 +381,6 @@ __all__ = [
     "evaluate_losses",
     "evaluate_frame_losses",
     "evaluate_banded_losses",
+    "frame_slice",
     "banded_tv_loss",
 ]

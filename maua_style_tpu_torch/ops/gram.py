@@ -15,8 +15,8 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
   outside any kernel, as in the JAX package.
 - ``batch_gram``: (B, C, H, W) -> (B, C, C), with covariance centering in
   plain torch around the Function.
-- ``banded_gram``: the Gram of an image cut into row bands on several
-  devices (``parallel/spatial.py``), one kernel launch per band.
+- ``banded_gram``: the per-frame Grams of a stack cut into row bands on
+  several devices (``parallel/spatial.py``), one kernel launch per band.
 - ``video_gram``: the whole-window ("dynamic texture") Gram of img_vid,
   (T, C, H, W) -> (T·C, T·C): ``batch_gram`` of the (1, T·C, H, W) view,
   so it runs the same kernel.
@@ -195,17 +195,20 @@ def video_gram(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
 
 
 def banded_gram(bands, use_covariance: bool = False) -> torch.Tensor:
-    """The unnormalised Gram of an image cut into row bands, (1, C, h_i, W)
-    each on its own device: each band's Gram through ``_GramFn`` (K1 on a
-    CUDA band) on the band's device, the partials summed on the first
-    band's device -> (1, C, C) f32.  ``use_covariance`` centres every band
-    with the image's channel means, summed from the bands.  The backward
-    of the sum hands each band the summed Gram's gradient, once."""
+    """Per-frame unnormalised Grams of a stack cut into row bands, (B, C,
+    h_i, W) each on its own device: each band's Grams through ``_GramFn``
+    (one K1 launch per band over the whole stack on a CUDA band) on the
+    band's device, the partials summed on the first band's device -> (B,
+    C, C) f32.  ``use_covariance`` centres each frame of every band with
+    that frame's channel means over the whole image, summed from the
+    bands.  The backward of the sum hands each band the summed Grams'
+    gradient, once."""
     dev = bands[0].device
-    fs = [x.reshape(1, x.shape[1], -1) for x in bands]
+    fs = [x.reshape(x.shape[0], x.shape[1], -1) for x in bands]
     if use_covariance:
         n = sum(f.shape[2] for f in fs)
-        mean = sum_on(dev, [f.sum(dim=2, keepdim=True, dtype=torch.float32) for f in fs]) / n
+        acc = torch.promote_types(fs[0].dtype, torch.float32)  # f32 sums for bf16 bands
+        mean = sum_on(dev, [f.sum(dim=2, keepdim=True, dtype=acc) for f in fs]) / n
         fs = [f - mean.to(device=f.device, dtype=f.dtype) for f in fs]
     return sum_on(dev, [_GramFn.apply(f) for f in fs])
 

@@ -8,13 +8,15 @@ several, as JAX's virtual CPU devices do, and the code runs exactly as it
 would on distinct cards.
 
 Axes: "space" cuts a pastiche's rows into bands (``parallel/spatial.py``;
-img_img), "frames" shares a stacked batch of independent frames out to the
-devices (vid_img's first pass, ``StyleEngine.optimize_frames``), "tensor"
-(channels) is not ported.
+img_img and vid_img's frames), "frames" shares a stacked batch of
+independent frames out to the rows of the mesh (vid_img's first pass,
+``StyleEngine.optimize_frames``), each row one frames index and all its
+"space" devices; "tensor" (channels) is not ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
@@ -87,17 +89,34 @@ def pastiche_sharding_for(args) -> Sharding | None:
     return sharding_for(build_mesh(devices, getattr(args, "mesh_shape", None)))
 
 
-def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[torch.device, slice]] | None:
+def mesh_rows(mesh: Mesh) -> list[tuple[torch.device, ...]]:
+    """The mesh's devices grouped by "frames" index: one row per index, each
+    row its "space" devices in order (the row-major layout read for either
+    axis order); one row of every device without a "frames" axis."""
+    names = [a for a, _ in mesh.axes]
+    if "frames" not in names:
+        return [tuple(mesh.devices)]
+    sizes = [s for _, s in mesh.axes]
+    strides = [math.prod(sizes[i + 1 :]) for i in range(len(sizes))]
+    f = names.index("frames")
+    others = [i for i in range(len(sizes)) if i != f]
+    return [tuple(mesh.devices[r * strides[f] + sum(j * strides[i] for i, j in zip(others, idx))]
+                  for idx in itertools.product(*(range(sizes[i]) for i in others)))
+            for r in range(sizes[f])]
+
+def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[tuple[torch.device, ...], slice]] | None:
     """A stacked batch of ``batch`` independent frames split over the plan's
-    "frames" axis: (device, frames) per device, or None where the plan does
-    not shard frames or the axis does not divide the batch (JAX's rule,
-    engine/optimize.py:763-766: such a chunk runs unsharded)."""
+    "frames" axis: (row, frames) per row of the mesh (``mesh_rows``: one
+    device, or a row of "space" bands), or None where the plan does not
+    shard frames or the axis does not divide the batch (JAX's rule,
+    engine/optimize.py:763-770: such a chunk runs on the first row)."""
     if sharding is None or sharding.spec[_DIMS["frames"]] != "frames":
         return None
     n = sharding.mesh.size("frames")
     if batch % n:
         return None
     per = batch // n
-    return [(dev, slice(i * per, (i + 1) * per)) for i, dev in enumerate(sharding.mesh.devices[:n])]
+    return [(row, slice(i * per, (i + 1) * per)) for i, row in enumerate(mesh_rows(sharding.mesh))]
 
-__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "frame_shards"]
+
+__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "frame_shards"]

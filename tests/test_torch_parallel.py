@@ -6,7 +6,8 @@ against the unbanded one, ``StyleEngine.optimize`` on "space" and
 ``optimize_frames`` on "frames" against unsharded (JAX
 tests/test_parallel.py's cases and bars), the style CLI with ``--gpu c
 --mesh space:2`` against JAX's, the frame loop's auto batch, and the raise
-of every path this slice leaves on one device."""
+of every path left on one device (vid_img's paths on "space" and on
+combined meshes: ``tests/test_torch_parallel_video.py``)."""
 
 import argparse
 import os
@@ -87,7 +88,7 @@ def test_pastiche_sharding_for_policy(n, axes):
 
 def test_frame_shards():
     plan = sharding_for(_mesh([("frames", 2)]))
-    assert frame_shards(plan, 4) == [(CPU, slice(0, 2)), (CPU, slice(2, 4))]
+    assert frame_shards(plan, 4) == [((CPU,), slice(0, 2)), ((CPU,), slice(2, 4))]  # one row of one device each
     assert frame_shards(plan, 3) is None  # JAX's rule: the chunk runs unsharded
     assert frame_shards(sharding_for(_mesh([("space", 2)])), 4) is None and frame_shards(None, 4) is None
     assert sharding_for(None) is None and sharding_for(_mesh([("space", 1)])) is None
@@ -380,26 +381,22 @@ def test_engine_paths_left_unsharded_raise():
     rng = np.random.default_rng(0)
     u8 = rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
     style = rng.random((1, 32, 32, 3), np.float32)
-    space = _small_engine(_mesh([("space", 2)]))
-    kw = dict(out_hw=(32, 32), blend_weights=[1.0])
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        space.optimize_frame(u8[0], [style], 1, init_mode="content", **kw)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        space.optimize_frames(u8, [style], 1, init_mode="content", **kw)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        space.optimize(style, [style], style, 1, transfer_type="vid_img", temporal_target=style)
     for mesh in (_mesh([("space", 2)]), _mesh([("frames", 2)])):
         with pytest.raises(NotImplementedError, match="item 18c"):
             _small_engine(mesh).optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32), 1,
                                          transfer_type="img_vid", gram_frame_window=2)
-    with pytest.raises(NotImplementedError, match="item 18f"):
-        _small_engine(_mesh([("frames", 2), ("space", 2)]))
     with pytest.raises(NotImplementedError, match="item 18e"):
         _small_engine(_mesh([("space", 2), ("tensor", 2)]))
     spec = select_model("nin")
+    nin_cfg = LossConfig(content_layers=("relu8",), style_layers=("relu1",))
     with pytest.raises(NotImplementedError, match="item 18k"):
-        StyleEngine(spec, init_params(spec), LossConfig(content_layers=("relu8",), style_layers=("relu1",)),
-                    device="cpu", mesh=_mesh([("space", 2)]))
+        StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=_mesh([("space", 2)]))
+    # vid_img's stacked first pass on "space" (items 18b, 18f) bands
+    # VGG-style nets only: NIN's layers move band boundaries
+    combined = _mesh([("frames", 2), ("space", 2)])
+    with pytest.raises(NotImplementedError, match="item 18k"):
+        StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=combined).optimize_frames(
+            u8, [style], 1, out_hw=(32, 32), blend_weights=[1.0], init_mode="content")
 
 
 def test_single_device_clis_raise_on_a_mesh(tmp_path, monkeypatch):

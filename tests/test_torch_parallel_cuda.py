@@ -1,6 +1,7 @@
 """The "space" mesh on a card: one banded step on ``[cuda:0, cuda:0]``
-against the unbanded step, and K1 at the bands' shapes against its plain
-version.
+against the unbanded step, for img_img and for a vid_img frame
+(``optimize_frame`` with the temporal term), and K1 at the bands' shapes
+against its plain version.
 
 These tests import no JAX, so they also run on a GPU host without it:
 
@@ -10,6 +11,7 @@ Without a CUDA device they skip: K1 has no CPU mode."""
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,7 +19,7 @@ from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.losses import LossConfig, evaluate_banded_losses, evaluate_losses
 from maua_style_tpu_torch.models import init_params, select_model
 from maua_style_tpu_torch.ops import gram as G
-from maua_style_tpu_torch.parallel import spatial
+from maua_style_tpu_torch.parallel import build_mesh, spatial
 
 
 def _card():
@@ -81,3 +83,40 @@ def test_banded_step_on_one_card_twice(use_covariance):
     assert float(rel) <= 1e-5, (bper, per)
     assert float((bgrad - grad).abs().max() / grad.abs().max()) <= 1e-4
     assert math.isfinite(float(btotal))
+
+
+@pytest.mark.cuda
+def test_optimize_frame_step_on_one_card_twice():
+    """``optimize_frame`` at 160x96 (two bands of 80 rows) from the
+    ``warp_prev`` init with the temporal term and reliability weights,
+    VGG-19 with the default layers, L-BFGS, TF32 off,
+    ``cudnn.deterministic``: one step on ``[cuda:0, cuda:0]`` against
+    unbanded, every loss term within rtol 1e-5 and the step within 1e-4 of
+    its max; each style layer's Grams two K1 launches an iteration."""
+    _card()
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    h, w = 160, 96
+    u8 = rng.integers(0, 255, (h, w, 3)).astype(np.uint8)
+    style = rng.random((1, 128, 128, 3), np.float32) * 200 - 100
+    prev = torch.from_numpy(rng.standard_normal((1, 3, h, w)).astype(np.float32) * 30).to(dev)
+    kw = dict(out_hw=(h, w), blend_weights=[1.0], init_mode="warp_prev", prev=prev, use_temporal=True,
+              flow=rng.standard_normal((h, w, 2)).astype(np.float32) * 3,
+              weights_u8=rng.integers(0, 255, (h, w)).astype(np.uint8))
+
+    def run(mesh, n):
+        engine = StyleEngine(spec, params, LossConfig(), learning_rate=0.1, device=dev, mesh=mesh)
+        engine.style_targets([style], [1.0])  # captured before the count
+        before = G.gram.launches
+        p, _ = engine.optimize_frame(u8, [style], n, **kw)
+        torch.cuda.synchronize()
+        return p, engine.last_loss_log.cpu().numpy(), G.gram.launches - before
+
+    p0 = run(None, 0)[0]
+    (q0, l0, n0), (q2, l2, n2) = run(None, 1), run(build_mesh([dev] * 2, [("space", 2)]), 1)
+    assert (n0, n2) == (5, 10)
+    assert l0[0, -1] > 0  # the temporal term is on
+    np.testing.assert_allclose(l2, l0, rtol=1e-5, atol=0)
+    assert float((q2 - q0).abs().max() / (q0 - p0).abs().max()) <= 1e-4
