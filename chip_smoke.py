@@ -30,7 +30,10 @@ Phases, each of which must pass (nothing is caught and passed over):
    mesh phases' new inputs, the two bands of a 1024² pastiche, (1, C, N/2),
    a frames:2 half of the frames phase's chunk, (4, C, N) at 512x288, and
    phase 6j's bands: of 512x288 stacks of 8 and 4 frames and of one frame,
-   and of one 1024x576 frame, (B, C, N/2).
+   and of one 1024x576 frame, (B, C, N/2); and at phase 6k's: the row
+   bands of img_vid's windows, (gfw, C, N_j) and (1, gfw·C, N_j), and the
+   "frames" shares, (T_i, C, N) and (1, T_i·C, N), whole and banded (9 + 9
+   frames at 256, 5 + 4 at 512, 4 + 3 at 724).
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -85,7 +88,8 @@ Phases, each of which must pass (nothing is caught and passed over):
    K1 input shape (per-frame and whole-window) against phase 2's, and K1's
    launch count against the schedule's formula (the dynamic term is read
    by the plain version after each scale's timed run, from a copy of its
-   first activations); a torch.profiler window over one img_vid window
+   first activations), s per window, the wall and the peak memory; a
+   torch.profiler window over one img_vid window
    at 256 and at 724 (report only); then a 6-frame window run on the GPU
    and on the CPU (TF32 off).
 6b. Neural CA: ``pipelines.nca_train.train`` at the JAX defaults (12
@@ -169,6 +173,25 @@ Phases, each of which must pass (nothing is caught and passed over):
    ``optimize_frames`` on space:2 and on frames:2,space:2 (``[cuda:0] *
    4``), with its bars and its 20-iteration reading, report only, and the
    seconds of each.
+6k. img_vid on meshes, one card standing in for several: phase 6's CLI
+   run at its first two scales (256 and 512) with ``--gpu 0,0 --mesh
+   space:2`` (every window's frames in two row bands) and with ``--gpu
+   0,0,0,0 --mesh frames:2,space:2`` (each window's frames shared out to
+   two rows of two bands, 9 + 9 at gfw 18, 5 + 4 at gfw 9): phase 6's
+   checks, K1's launches (10 per band per share per iteration, plus the
+   captures', whole on the first device) and the whole-window Gram's
+   off-diagonal products (plain ``torch.matmul``, 5 per band per pair of
+   shares an iteration), s per window, wall s and peak memory beside
+   phase 6's run.  Between them, under ``cudnn.deterministic``, one 724
+   window (7 frames, gfw 7) unsharded against space:2, frames:2 and
+   frames:2,space:2, at w = 0 and under w = 1's frozen split: one step's
+   loss terms (rtol 1e-5) and gradient (1e-4), 4 L-BFGS iterations at lr
+   0.1 (6h's and 6j's) from the random init (the first two totals within
+   rtol 1e-5, mean|Δ| within 1e-2 of mean|p|), ms per iteration and
+   peaks; at the CLI's lr 1 (w = 0) the first two totals within rtol 1e-5
+   and mean|Δ| within twice the unsharded run's own from an init one f32
+   spacing off; and the off-diagonal products' device ms an iteration and
+   their share of a window's.
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -185,7 +208,8 @@ Phases, each of which must pass (nothing is caught and passed over):
    L-BFGS safe size in this process (beside the fresh-process table's),
    ``hbm_bytes()`` and the frame sizing; fails if that scale runs out of
    memory or the allocator's count does not return to its start.
-8. A ``kernels`` JSON line, the card line, and last the ``ok`` line.
+8. The script's seconds, a ``kernels`` JSON line, the card line, and last
+   the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
 the package is not beside this script, or when any phase fails.  Details
@@ -401,6 +425,33 @@ def check_gram(results: dict) -> dict:
 
 IV_HW, IV_STYLE_HW, IV_FRAMES, IV_STYLE_FRAMES = (576, 1024), (432, 768), 24, 24
 IV_SIZES, IV_ITERS, IV_GFW, IV_AFW = (256, 512, 724), (4, 4, 4), (18, 9, 7), 18
+# phase 6k: phase 6's CLI on meshes of one card standing in for several, cut
+# in depth to its first two scales; then one 724 window (gfw 7) unsharded
+# against each mesh, at w = 0 and under the frozen split of w = 1
+IV_MESH = (("space2", "0,0", "space:2"), ("frames2_space2", "0,0,0,0", "frames:2,space:2"))
+IV_MESH_SCALES = 2
+IV_PARITY_SIZE, IV_PARITY_GFW, IV_PARITY_ITERS, IV_PARITY_FROZEN = 724, 7, 4, (3, 1)
+# the gated iterations' lr, as 6h's and 6j's; the CLI's lr 1 is read too
+IV_PARITY_LR, IV_CLI_LR = 0.1, 1.0
+IV_PARITY_MESHES = (("space2", "space:2"), ("frames2", "frames:2"), ("frames2_space2", "frames:2,space:2"))
+
+
+def iv_hw(size: int) -> tuple[int, int]:
+    """The img_vid phase's pastiche (H, W) at ``size``."""
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    return tuple(scale_shape(IV_HW, size / max(IV_HW)))
+
+
+def iv_style_hw(size: int) -> tuple[int, int]:
+    """The style video's (H, W) at ``size``: ``scale_styles`` resizes it to
+    about the pastiche's area."""
+    import math
+
+    from maua_style_tpu_torch.ops.resize import scale_shape
+
+    hw = iv_hw(size)
+    return tuple(scale_shape(IV_STYLE_HW, math.sqrt(hw[0] * hw[1] / (IV_STYLE_HW[0] * IV_STYLE_HW[1]))))
 
 
 def img_vid_gram_shapes() -> list[tuple[int, int, int, int]]:
@@ -410,27 +461,48 @@ def img_vid_gram_shapes() -> list[tuple[int, int, int, int]]:
     resizes to about the content's area (VGG-19's 2x2 pools round down).
     K1 gets each as a batch of per-frame Grams, (gfw, C, N), and as the
     whole-window view, (1, gfw·C, N)."""
-    import math
-
-    from maua_style_tpu_torch.ops.resize import scale_shape
-
     out = set()
     for size, gfw in zip(IV_SIZES, IV_GFW):
-        hw = scale_shape(IV_HW, size / max(IV_HW))
-        style_hw = scale_shape(IV_STYLE_HW, math.sqrt(hw[0] * hw[1] / (IV_STYLE_HW[0] * IV_STYLE_HW[1])))
-        for h, w in (hw, style_hw):
+        for h, w in (iv_hw(size), iv_style_hw(size)):
             for c in (64, 128, 256, 512, 512):
                 out.add((size, gfw, c, h * w))
                 h, w = h // 2, w // 2
     return sorted(out)
 
 
-def img_vid_gram_inputs() -> dict[str, set[tuple[int, int, int]]]:
-    """The (B, C, N) inputs K1 gets on the img_vid phase's path: the
-    per-frame batches ("frames") and the whole-window views ("window")."""
-    shapes = img_vid_gram_shapes()
-    return {"frames": {(gfw, c, n) for _, gfw, c, n in shapes},
-            "window": {(1, gfw * c, n) for _, gfw, c, n in shapes}}
+def iv_window_gram_inputs(hw, t_w: int, shares: int = 1, bands: int = 1) -> set[tuple[int, int, int]]:
+    """K1's inputs in one iteration of a ``t_w``-frame img_vid window of hw
+    frames (or in one target capture) on a mesh of ``shares`` "frames" rows
+    of ``bands`` "space" bands (``parallel.window_shares``: as even as
+    possible): per share and band, the static Grams' (T_i, C, N_j) and the
+    whole-window Gram's diagonal block, (1, T_i·C, N_j)."""
+    per, extra = divmod(t_w, shares)
+    frames = {per + (i < extra) for i in range(shares)} - {0}
+    return {s for t in frames for c, n in band_style_shapes(*hw, bands) for s in ((t, c, n), (1, t * c, n))}
+
+
+def img_vid_run_gram_inputs(sizes, gfws, shares: int = 1, bands: int = 1) -> set[tuple[int, int, int]]:
+    """K1's inputs on an img_vid CLI run: each scale's style target
+    captures (whole, on the first device) and its windows' iterations."""
+    out = set()
+    for size, gfw in zip(sizes, gfws):
+        out |= iv_window_gram_inputs(iv_style_hw(size), gfw) | iv_window_gram_inputs(iv_hw(size), gfw, shares, bands)
+    return out
+
+
+def img_vid_mesh_gram_inputs() -> set[tuple[int, int, int]]:
+    """K1's inputs on phase 6k: its two CLI runs and its 724 window on
+    space:2, frames:2 and frames:2,space:2."""
+    from maua_style_tpu_torch import config
+
+    out = set()
+    for _, _, mesh in IV_MESH:
+        axes = dict(config.parse_mesh(mesh))
+        out |= img_vid_run_gram_inputs(IV_SIZES[:IV_MESH_SCALES], IV_GFW, axes.get("frames", 1), axes.get("space", 1))
+    for _, mesh in IV_PARITY_MESHES:
+        axes = dict(config.parse_mesh(mesh))
+        out |= img_vid_run_gram_inputs((IV_PARITY_SIZE,), (IV_PARITY_GFW,), axes.get("frames", 1), axes.get("space", 1))
+    return out
 
 
 def check_video_gram(results: dict) -> dict:
@@ -480,6 +552,34 @@ def check_video_gram(results: dict) -> dict:
         out[kind] = {"ms": sum(r["kernel_ms"] for r in kr), "library_ms": sum(r["library_ms"] for r in kr),
                      "plain_ms": sum(r["plain_ms"] for r in kr), "bound_ms": sum(r["bound_ms"] for r in kr),
                      "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in kr), "shapes": len(kr)}
+    return out
+
+
+def check_img_vid_mesh_gram(results: dict) -> dict:
+    """K1 at every input of phase 6k that phase 6's check does not hold,
+    f32, with phase 2's bars and times: the row bands' (gfw, C, N_j) and
+    (1, gfw·C, N_j) at 256 and 512 (and 724), and the "frames" shares'
+    (T_i, C, N) and (1, T_i·C, N), whole and banded (9 + 9 frames at 256, 5
+    + 4 at 512, 4 + 3 at 724)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rows = []
+    for shape in sorted(img_vid_mesh_gram_inputs() - img_vid_run_gram_inputs(IV_SIZES, IV_GFW)):
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), "kind": "window" if shape[0] == 1 else "frames", **measure_gram(f)}
+        rows.append(row)
+        print("img_vid mesh gram", json.dumps(row))
+        del f
+    torch.cuda.empty_cache()
+    results["gram_img_vid_mesh"] = rows
+    out = {"shapes": len(rows), "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows)}
+    for kind in ("window", "frames"):
+        kr = [r for r in rows if r["kind"] == kind]
+        out[kind] = {"ms": sum(r["kernel_ms"] for r in kr), "plain_ms": sum(r["plain_ms"] for r in kr),
+                     "library_ms": sum(r["library_ms"] for r in kr), "bound_ms": sum(r["bound_ms"] for r in kr),
+                     "shapes": len(kr), "slower_than_library": [r["shape"] for r in kr if r["kernel_ms"] >= r["library_ms"]]}
     return out
 
 
@@ -1195,53 +1295,68 @@ def write_img_vid_inputs(d: str) -> tuple[str, str]:
     return c_path, s_path
 
 
-def img_vid_expected_launches() -> int:
-    """K1 launches of the img_vid phase, from the code's schedule: each
-    scale runs ceil(T / gfw) + 1 windows (engine/windows.py); each window
-    first captures its targets from an --avg_frame_window-frame stretch of
-    the style video, max(afw - gfw + 1, 1) style windows of 5 static and 5
-    whole-window Grams each, then runs its iterations, 5 static Grams plus
-    5 whole-window Grams each (a window holds gfw frames, as the target)."""
+def img_vid_expected_launches(sizes=IV_SIZES, shares: int = 1, bands: int = 1) -> tuple[int, int]:
+    """K1 launches of an img_vid CLI run, from the code's schedule, and the
+    whole-window Gram's off-diagonal products (plain ``torch.matmul``, not
+    K1): each scale runs ceil(T / gfw) + 1 windows (engine/windows.py);
+    each window first captures its targets, whole on the first device,
+    from an --avg_frame_window-frame stretch of the style video, max(afw -
+    gfw + 1, 1) style windows of 5 static and 5 whole-window Grams each,
+    then runs its iterations: on each band of each share 5 static Grams
+    and 5 diagonal blocks of the whole-window Gram (a window holds gfw
+    frames, as the target), and 5 products a band for each pair of
+    shares."""
     import math
 
-    total = 0
-    for gfw, it in zip(IV_GFW, IV_ITERS):
+    gram = products = 0
+    for gfw, it in zip(IV_GFW, IV_ITERS[: len(sizes)]):
         windows = math.ceil(IV_FRAMES / gfw) + 1
-        total += windows * (10 * max(IV_AFW - gfw + 1, 1) + 10 * it)
-    return total
+        gram += windows * (10 * max(IV_AFW - gfw + 1, 1) + 10 * bands * shares * it)
+        products += windows * it * 5 * bands * shares * (shares - 1) // 2
+    return gram, products
 
 
-def run_img_vid(results: dict) -> dict[str, int]:
+def run_img_vid(results: dict, key: str = "img_vid", gpu: str = "0", mesh: str | None = None,
+                sizes=IV_SIZES) -> dict[str, int]:
     """``style.main --transfer_type img_vid`` with the defaults' window
     structure (gfw 18,9,7, afw 18, video_style_factor 100, temporal blend
     0.5, L-BFGS history 100), VGG-19 f32 --precision highest, --init random,
-    cut to 24 frames, sizes 256/512/724 and 4 iterations a window."""
+    cut to 24 frames, ``sizes`` (256/512/724) and 4 iterations a window; on
+    ``--gpu`` and ``--mesh`` (phase 6k).  Checks the stacks, finite outputs
+    and loss logs, a non-zero dynamic term at every scale, K1's inputs
+    against phase 2's, K1's launches and the off-diagonal products against
+    the schedule's formula; records s per window, the wall and the peak
+    memory."""
     import numpy as np
     import scipy.ndimage
     import torch
 
+    from maua_style_tpu_torch import config, style
     from maua_style_tpu_torch import io as mio
-    from maua_style_tpu_torch import losses, style
     from maua_style_tpu_torch.engine import StyleEngine
     from maua_style_tpu_torch.engine import optimize as engine_optimize
     from maua_style_tpu_torch.ops import gram as G
-    from maua_style_tpu_torch.ops.resize import scale_shape
     from maua_style_tpu_torch.pipelines import img_vid as img_vid_pipeline
 
-    run_dir = os.path.join(OUT, "img_vid")
+    run_dir = os.path.join(OUT, key)
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
     c_path, s_path = write_img_vid_inputs(run_dir)
+    n = len(sizes)
     argv = [
         "--transfer_type", "img_vid", "--content", c_path, "--style", s_path, "--output_dir", run_dir,
-        "--image_sizes", ",".join(map(str, IV_SIZES)), "--num_iters", ",".join(map(str, IV_ITERS)),
-        "--num_frames", str(IV_FRAMES), "--gram_frame_window", ",".join(map(str, IV_GFW)),
+        "--image_sizes", ",".join(map(str, sizes)), "--num_iters", ",".join(map(str, IV_ITERS[:n])),
+        "--num_frames", str(IV_FRAMES), "--gram_frame_window", ",".join(map(str, IV_GFW[:n])),
         "--avg_frame_window", str(IV_AFW), "--video_style_factor", "100", "--temporal_blend", "0.5",
         "--optimizer", "lbfgs", "--lbfgs_num_correction", "100", "--init", "random", "--model_file", "vgg19",
-        "--allow_random_weights", "--precision", "highest", "--compute_dtype", "float32", "--seed", "0", "--gpu", "0",
+        "--allow_random_weights", "--precision", "highest", "--compute_dtype", "float32", "--seed", "0", "--gpu", gpu,
+        *(["--mesh", mesh] if mesh else []),
     ]
+    axes = dict(config.parse_mesh(mesh))
+    bands, shares = axes.get("space", 1), axes.get("frames", 1)
     scales = []
-    seen = {"frames": set(), "window": set()}  # the (B, C, N) inputs K1 got
+    seen = set()  # the (B, C, N) inputs K1 got
+    products = [0]  # the whole-window Gram's off-diagonal blocks computed
     cur = {}
 
     def timed_optimize(fn, self, content, styles, init, num_iters, **kw):
@@ -1259,8 +1374,10 @@ def run_img_vid(results: dict) -> dict[str, int]:
             for l, (a, t) in cur.pop("probe", {}).items():
                 vg = G.gram_reference(a.reshape(1, -1, a.shape[2] * a.shape[3]))[0] / a.numel()
                 dynamic[l] = float(torch.mean((vg - t) ** 2)) if t.shape == vg.shape else None
+        cur.pop("whole_dynamic", None)
         scales.append({"hw": list(np.shape(init)[1:3]), "frames": int(np.shape(init)[0]), "iters": num_iters,
                        "gfw": kw.get("gram_frame_window"), "wall_s": wall_s, "log": self.last_loss_log,
+                       "mesh": self.mesh.axes if self.mesh else None,
                        "out_finite": bool(np.isfinite(out).all()), "dynamic": dynamic, **cur})
         return out
 
@@ -1280,78 +1397,96 @@ def run_img_vid(results: dict) -> dict[str, int]:
         cur["capture_s"] += time.perf_counter() - t0
         return out
 
+    def whole_targets(fn, self, targets, layout):
+        # the window's whole dynamic targets, for the probe on a mesh
+        cur.setdefault("whole_dynamic", targets.get("style_video", {}))
+        return fn(self, targets, layout)
+
     def dynamic_probe(fn, pastiche, acts, targets, cfg, scale=None):
-        # a copy of the scale's first activations and dynamic targets, for
-        # timed_optimize to read the dynamic term from
-        vt = targets.get("style_video", {})
-        if vt and "probe" not in cur:
-            cur["probe"] = {l: (acts[l].detach().float().clone(), t) for l, t in vt.items()}
+        # a copy of the scale's first activations (gathered from the
+        # shares' bands on a mesh) and dynamic targets, for timed_optimize
+        # to read the dynamic term from
+        if "probe" not in cur:
+            if isinstance(pastiche, list):
+                vt = cur.get("whole_dynamic", {})
+                whole = {l: torch.cat([torch.cat([b.to(pastiche[0][0].device) for b in a[l]], dim=2) for a in acts])
+                         for l in vt}
+            else:
+                vt, whole = targets.get("style_video", {}), acts
+            if vt:
+                cur["probe"] = {l: (whole[l].detach().float().clone(), t) for l, t in vt.items()}
         return fn(pastiche, acts, targets, cfg, scale)
 
-    def recording(kind, view):
-        def wrapper(fn, x, use_covariance=False):
-            seen[kind].add(view(x.shape))
-            return fn(x, use_covariance)
-
-        return wrapper
+    def counted(fn, a, b):
+        products[0] += 1
+        return fn(a, b)
 
     host = {}  # the pipeline's host steps, seconds
     with patched((StyleEngine, "optimize", timed_optimize), (StyleEngine, "_run", timed_run),
-                 (StyleEngine, "style_video_targets", timed_capture),
+                 (StyleEngine, "style_video_targets", timed_capture), (StyleEngine, "_share_targets", whole_targets),
                  (engine_optimize, "evaluate_losses", dynamic_probe),
-                 (losses, "batch_gram", recording("frames", lambda s: (s[0], s[1], s[2] * s[3]))),
-                 (losses, "video_gram", recording("window", lambda s: (1, s[0] * s[1], s[2] * s[3]))),
+                 (engine_optimize, "evaluate_window_losses", dynamic_probe),
+                 (G._GramFn, "apply", gram_inputs_into(seen)), (G, "_cross_block", counted),
                  *((obj, name, seconds_into(host, name)) for obj, name in (
                      (scipy.ndimage, "gaussian_filter"), (img_vid_pipeline, "match_histogram"),
                      (img_vid_pipeline, "resize_bilinear_np"), (mio, "save_tensor_to_file"),
                      (mio, "process_style_videos"), (img_vid_pipeline, "build_engine")))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
         style.main(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
 
-    want = img_vid_expected_launches()
-    print(f"img_vid main path: {wall:.1f} s, launches {counts} (expected gram {want}, correlation 0)")
-    if counts != {"gram": want, "correlation": 0}:
-        fail(f"img_vid launches {counts} != gram {want}, correlation 0")
-    for kind, checked in img_vid_gram_inputs().items():
-        if seen[kind] != checked:
-            fail(f"img_vid's {kind} Gram inputs {sorted(seen[kind])} != phase 2's {sorted(checked)}")
-    if len(scales) != len(IV_SIZES):
-        fail(f"{len(scales)} scales optimised, expected {len(IV_SIZES)}")
+    want, want_products = img_vid_expected_launches(sizes, shares, bands)
+    print(f"{key} path: {wall:.1f} s, launches {counts} (expected gram {want}, correlation 0), off-diagonal products "
+          f"{products[0]} (expected {want_products})")
+    if counts != {"gram": want, "correlation": 0} or products[0] != want_products:
+        fail(f"{key} launches {counts}, products {products[0]} != gram {want}, correlation 0, products {want_products}")
+    checked = img_vid_run_gram_inputs(sizes, IV_GFW, shares, bands)
+    if seen != checked:
+        fail(f"{key}'s Gram inputs {sorted(seen)} != phase 2's {sorted(checked)}")
+    if len(scales) != n:
+        fail(f"{key}: {len(scales)} scales optimised, expected {n}")
 
     stem = os.path.join(run_dir, "content_stylevid")
     rows = []
-    for size, gfw, it, sc in zip(IV_SIZES, IV_GFW, IV_ITERS, scales):
-        hw = tuple(scale_shape(IV_HW, size / max(IV_HW)))
+    for size, gfw, it, sc in zip(sizes, IV_GFW, IV_ITERS, scales):
+        hw = iv_hw(size)
         n_windows = -(-IV_FRAMES // gfw) + 1
         log = sc["log"]
         if tuple(sc["hw"]) != hw or sc["frames"] != IV_FRAMES or sc["gfw"] != gfw or not sc["out_finite"]:
-            fail(f"scale {size}: engine saw {sc['frames']} frames of {sc['hw']} at gfw {sc['gfw']} (expected {hw}, {gfw})")
+            fail(f"{key} scale {size}: engine saw {sc['frames']} frames of {sc['hw']} at gfw {sc['gfw']} "
+                 f"(expected {hw}, {gfw})")
+        if (sc["mesh"] or ()) != tuple(config.parse_mesh(mesh) if mesh else ()):
+            fail(f"{key} scale {size}: the engine's mesh {sc['mesh']} is not --mesh {mesh}")
         if log is None or log.shape[0] != n_windows * it or not np.isfinite(log).all():
-            fail(f"scale {size}: loss log {None if log is None else log.shape} not finite / wrong length")
+            fail(f"{key} scale {size}: loss log {None if log is None else log.shape} not finite / wrong length")
         dyn = sc["dynamic"]
         if len(dyn) != 5 or not all(v is not None and np.isfinite(v) and v > 0 for v in dyn.values()):
-            fail(f"scale {size}: dynamic term {dyn} not non-zero and finite at every style layer")
-        for art in (f"{stem}_{size}",) + ((stem,) if size == IV_SIZES[-1] else ()):
+            fail(f"{key} scale {size}: dynamic term {dyn} not non-zero and finite at every style layer")
+        for art in (f"{stem}_{size}",) + ((stem,) if size == sizes[-1] else ()):
             arr = np.load(art + ".npy") if os.path.exists(art + ".npy") else None
             if not os.path.exists(art + ".mp4") and (arr is None or arr.shape != (IV_FRAMES, *hw, 3)):
                 fail(f"{art}: no .mp4 and no ({IV_FRAMES}, {hw}, 3) .npy stack ({None if arr is None else arr.shape})")
         run_s = sum(ms for ms, _, _ in sc["run_ms"]) / 1e3
         row = {"size": size, "hw": list(hw), "gfw": gfw, "windows": n_windows, "iters_per_window": it,
                "wall_s": sc["wall_s"], "capture_s": sc["capture_s"], "iterations_s": run_s,
-               "ms_per_iter": run_s * 1e3 / (n_windows * it),
+               "s_per_window": run_s / n_windows, "ms_per_iter": run_s * 1e3 / (n_windows * it),
                "ms_per_iter_window0": sc["run_ms"][0][0] / sc["run_ms"][0][1],
                "frozen": [f for _, _, f in sc["run_ms"]], "dynamic_mse_first_iter": dyn,
                "first_total": float(log[0].sum()), "last_total": float(log[-1].sum())}
         rows.append(row)
-        print("img_vid", json.dumps(row))
-    summary = {"wall_s": wall, "launches": counts, "expected_gram": want,
-               "optimize_s": sum(r["wall_s"] for r in rows), "capture_s": sum(r["capture_s"] for r in rows),
-               "host_s": wall - sum(r["wall_s"] for r in rows), "host_steps_s": host, "scales": rows, "argv": argv}
-    print("img_vid summary", json.dumps({k: v for k, v in summary.items() if k not in ("scales", "argv")}))
-    results["img_vid"] = summary
+        print(key, json.dumps(row))
+    summary = {"wall_s": wall, "peak_bytes": peak, "launches": counts, "expected_gram": want,
+               "off_diagonal_products": products[0], "optimize_s": sum(r["wall_s"] for r in rows),
+               "capture_s": sum(r["capture_s"] for r in rows), "host_s": wall - sum(r["wall_s"] for r in rows),
+               "host_steps_s": host, "scales": rows, "argv": argv}
+    print(f"{key} summary", json.dumps({k: v for k, v in summary.items() if k not in ("scales", "argv")}))
+    results[key] = summary
     shutil.rmtree(run_dir)  # the stacks and frames, checked above
     return counts
 
@@ -1363,8 +1498,6 @@ def profile_img_vid_window(results: dict) -> None:
     come from the style video's first gfw frames.  Report only: the split
     of the device time between the convolutions, K1, the whole-window
     Gram's backward and the elementwise passes over its matrices."""
-    import math
-
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1372,7 +1505,6 @@ def profile_img_vid_window(results: dict) -> None:
     from maua_style_tpu_torch.engine import StyleEngine
     from maua_style_tpu_torch.losses import LossConfig
     from maua_style_tpu_torch.models import init_params, select_model
-    from maua_style_tpu_torch.ops.resize import scale_shape
 
     spec = select_model("vgg19")
     eng = StyleEngine(spec, init_params(spec), LossConfig(video_style_factor=100.0), device="cuda",
@@ -1380,8 +1512,7 @@ def profile_img_vid_window(results: dict) -> None:
     rng = np.random.default_rng(5)
     out = {}
     for size, gfw in ((IV_SIZES[0], IV_GFW[0]), (IV_SIZES[-1], IV_GFW[-1])):
-        hw = scale_shape(IV_HW, size / max(IV_HW))
-        shw = scale_shape(IV_STYLE_HW, math.sqrt(hw[0] * hw[1] / (IV_STYLE_HW[0] * IV_STYLE_HW[1])))
+        hw, shw = iv_hw(size), iv_style_hw(size)
         content = rng.normal(0, 50, (1, *hw, 3)).astype(np.float32)
         video = rng.normal(0, 50, (gfw, *shw, 3)).astype(np.float32)
         init = rng.normal(0, 20, (gfw, *hw, 3)).astype(np.float32)
@@ -1428,6 +1559,234 @@ def check_img_vid_against_cpu(results: dict) -> None:
     if not (np.isfinite(outs[0]).all() and worst <= 1e-3):
         fail(f"img_vid GPU and CPU runs disagree: {worst:.3e}")
     results["img_vid_vs_cpu"] = {"max_rel_loss": worst, "max_abs_pixel": pix}
+
+
+class GradRecorder:
+    """An optimiser that hands ``update`` to ``opt`` and keeps the gradient
+    it was given."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state):
+        self.grads = grads
+        return self.opt.update(grads, state)
+
+
+def off_diagonal_ms(hw, t_w: int, shares: int, bands: int) -> float:
+    """Device ms of one iteration's off-diagonal blocks of the whole-window
+    Gram of a ``t_w``-frame window of hw frames on a mesh of ``shares`` rows
+    of ``bands`` bands: at each style layer, for each pair of shares and
+    each band, the product F_iF_kᵀ forward and its gradient to both
+    operands (``ops.gram._cross_block`` under autograd), on random
+    activations of the band's shapes; CUDA events, median of 7."""
+    import torch
+
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.parallel import spatial
+
+    per, extra = divmod(t_w, shares)
+    frames = [per + (i < extra) for i in range(shares)]
+    heights = spatial.band_rows(hw[0], bands, 16) if bands > 1 else [hw[0]]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    total = 0.0
+    for c, stride in zip((64, 128, 256, 512, 512), (1, 2, 4, 8, 16)):
+        for hb in spatial.level_heights(heights, stride):
+            n = hb * (hw[1] // stride)
+            for i in range(shares):
+                for k in range(i + 1, shares):
+                    a = torch.randn((frames[i] * c, n), device="cuda", generator=gen).requires_grad_(True)
+                    b = torch.randn((frames[k] * c, n), device="cuda", generator=gen).requires_grad_(True)
+                    g = torch.randn((frames[i] * c, frames[k] * c), device="cuda", generator=gen)
+                    total += time_ms(lambda: torch.autograd.grad(G._cross_block(a, b), (a, b), g))
+    return total
+
+
+def check_img_vid_window_parity(results: dict) -> dict:
+    """One img_vid window at 724 (7 frames of 407x724, gfw 7, VGG-19 f32,
+    the default layers, video_style_factor 100, L-BFGS history 100, TF32
+    off, ``cudnn.deterministic``) unsharded and on space:2, frames:2 and
+    frames:2,space:2 of ``[cuda:0] * n``, each engine capturing its own
+    targets (the content band by band, the style video's whole and then
+    copied to the rows), from one 0.001·N(0, 1) init, at w = 0 (every frame
+    moves) and under w = 1's frozen split (the first 3 and the last frame
+    frozen: one frame of the first share moves, two of the second):
+
+    - one step: every loss term within rtol 1e-5 and the gradient the
+      optimiser gets within 1e-4 of its max;
+    - 4 iterations at lr 0.1 (6h's and 6j's): the first two totals within
+      rtol 1e-5, mean|Δ| within 1e-2 of mean|p|; ms per iteration and
+      the peak memory;
+    - w = 0 at the CLI's lr 1: the first two totals within rtol 1e-5 and
+      mean|Δ| within twice the unsharded run's own from the init moved one
+      f32 spacing up (the witness; at least 1e-2), as 6j holds warp_prev.
+      At lr 1 L-BFGS's first curvature pair is set by the gradients'
+      rounding, so 4 iterations carry a 1e-6 gradient difference to ≈ 1%
+      of mean|p| (2.6% for the witness on an H100; PERF.md);
+
+    with K1's inputs among phase 2's.  Then the off-diagonal blocks' device
+    ms an iteration (``off_diagonal_ms``) and their share of the window's
+    ms per iteration, on frames:2 and frames:2,space:2 (on one card the
+    copies of F_k are no-ops)."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import config
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw
+    from maua_style_tpu_torch.losses import LossConfig
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.parallel import build_mesh
+
+    dev = torch.device("cuda", 0)
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    t_w, (fo, eo) = IV_PARITY_GFW, IV_PARITY_FROZEN
+    hw, shw = iv_hw(IV_PARITY_SIZE), iv_style_hw(IV_PARITY_SIZE)
+    rng = np.random.default_rng(11)
+    content = rng.normal(0, 50, (1, *hw, 3)).astype(np.float32)
+    video = rng.normal(0, 50, (t_w, *shw, 3)).astype(np.float32)
+    init = rng.normal(0, 0.001, (t_w, *hw, 3)).astype(np.float32)
+    layouts = [("unsharded", [])] + [(name, config.parse_mesh(mesh)) for name, mesh in IV_PARITY_MESHES]
+    seen: set = set()
+    runs = {}  # (layout, w, lr, witness) -> readings
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, axes in layouts:
+            n = int(np.prod([s for _, s in axes])) if axes else 1
+            engine = StyleEngine(spec, params, LossConfig(video_style_factor=100.0), lbfgs_history=100,
+                                 precision="highest", device=dev, mesh=build_mesh([dev] * n, axes) if axes else None)
+            with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+                targets = {"content": engine.content_targets(content)}
+                engine._set_style_video_targets(targets, [video], [1.0], t_w)
+                layout = engine._window_layout(t_w, hw)
+                run_targets = engine._share_targets(targets, layout) if layout else targets
+                cases = [("w0", None, IV_PARITY_LR, False), ("w1", IV_PARITY_FROZEN, IV_PARITY_LR, False),
+                         ("w0", None, IV_CLI_LR, False)] + ([("w0", None, IV_CLI_LR, True)] if not axes else [])
+                for w, frozen, lr, witness in cases:
+                    p = to_nchw(init, dev)
+                    if witness:
+                        p = torch.nextafter(p, torch.full_like(p, float("inf")))
+                    pieces = layout.split(p) if layout else p
+                    moving = layout.moving(pieces, frozen) if layout else p if frozen is None else p[fo : t_w - eo]
+                    engine.learning_rate = lr
+                    row = {}
+                    if lr == IV_PARITY_LR:  # one step: the terms and the gradient the optimiser gets
+                        rec = GradRecorder(engine._make_optimizer())
+                        _, _, log1 = engine._run(pieces, rec, rec.init(moving), run_targets, {}, 1, frozen=frozen,
+                                                 window=layout)
+                        k = len(layout.heights) if layout else 1  # each share's bands, back to its moving frames
+                        grads = rec.grads if layout else [rec.grads]
+                        row.update(terms=log1[0].cpu().numpy(), grad=torch.cat(
+                            [torch.cat(grads[i : i + k], dim=2) for i in range(0, len(grads), k)]).detach())
+                    opt = engine._make_optimizer()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    q, _, log = engine._run(pieces, opt, opt.init(moving), run_targets, {}, IV_PARITY_ITERS,
+                                            frozen=frozen, window=layout)
+                    torch.cuda.synchronize()
+                    row.update(log=log.cpu().numpy(), p=layout.gather(q, dev) if layout else q,
+                               ms_per_iter=(time.perf_counter() - t0) * 1e3 / IV_PARITY_ITERS,
+                               peak_bytes=torch.cuda.max_memory_allocated() - base)
+                    runs[(name, w, lr, witness)] = row
+            del engine, run_targets, targets
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def apart(r, ref):
+        tot, tot_ref = r["log"].sum(axis=1), ref["log"].sum(axis=1)
+        d = (r["p"] - ref["p"]).abs()
+        row = {"first_two_rtol": float(np.max(np.abs(tot[:2] - tot_ref[:2]) / np.abs(tot_ref[:2]))),
+               "log_rtol": float(np.max(np.abs(tot - tot_ref) / np.abs(tot_ref))),
+               "mean_abs_rel_pastiche": float(d.mean() / ref["p"].abs().mean()), "max_abs_pastiche": float(d.max()),
+               "finite": bool(np.isfinite(r["log"]).all()), "ms_per_iter": r["ms_per_iter"],
+               "peak_bytes": r["peak_bytes"]}
+        if "terms" in r:
+            row["terms_rtol"] = float(np.max(np.abs(r["terms"] - ref["terms"]) / np.maximum(np.abs(ref["terms"]), 1e-30)))
+            row["grad_rel"] = float((r["grad"] - ref["grad"]).abs().max() / ref["grad"].abs().max())
+        return row
+
+    out = {"hw": list(hw), "frames": t_w, "iters": IV_PARITY_ITERS, "frozen_w1": list(IV_PARITY_FROZEN),
+           "lr": IV_PARITY_LR}
+    for w in ("w0", "w1"):
+        ref = runs[("unsharded", w, IV_PARITY_LR, False)]
+        out[w] = {"unsharded": {"ms_per_iter": ref["ms_per_iter"], "peak_bytes": ref["peak_bytes"],
+                                "terms": ref["terms"].tolist()},
+                  **{name: apart(runs[(name, w, IV_PARITY_LR, False)], ref) for name, _ in layouts[1:]}}
+    ref = runs[("unsharded", "w0", IV_CLI_LR, False)]
+    witness = apart(runs[("unsharded", "w0", IV_CLI_LR, True)], ref)
+    out["lr1_w0"] = {"witness_one_ulp_up": witness, "mean_abs_rel_bar": max(1e-2, 2 * witness["mean_abs_rel_pastiche"]),
+                     **{name: apart(runs[(name, "w0", IV_CLI_LR, False)], ref) for name, _ in layouts[1:]}}
+    for name, mesh in IV_PARITY_MESHES:
+        axes = dict(config.parse_mesh(mesh))
+        if axes.get("frames", 1) > 1:
+            ms = off_diagonal_ms(hw, t_w, axes["frames"], axes.get("space", 1))
+            out[f"off_diagonal_{name}"] = {"ms_per_iter": ms, "share_of_window_iter": ms / out["w0"][name]["ms_per_iter"]}
+    print("img_vid_mesh: one 724 window on meshes of one card against unsharded:", json.dumps(out))
+    for w in ("w0", "w1"):
+        if min(out[w]["unsharded"]["terms"][:-1]) <= 0:  # content, style and TV; the temporal term has no target
+            fail(f"img_vid_mesh {w}: a loss term is zero: {out[w]['unsharded']['terms']}")
+        for name, _ in layouts[1:]:
+            row = out[w][name]
+            if not (row["finite"] and row["terms_rtol"] <= 1e-5 and row["grad_rel"] <= 1e-4
+                    and row["first_two_rtol"] <= 1e-5 and row["mean_abs_rel_pastiche"] <= 1e-2):
+                fail(f"img_vid_mesh: the 724 window ({w}) on {name} against unsharded: {row}")
+    lr1 = out["lr1_w0"]
+    for name, _ in layouts[1:]:
+        row = lr1[name]
+        if not (row["finite"] and row["first_two_rtol"] <= 1e-5 and row["mean_abs_rel_pastiche"] <= lr1["mean_abs_rel_bar"]):
+            fail(f"img_vid_mesh: the 724 window at lr 1 on {name} against unsharded: {row} (bar {lr1['mean_abs_rel_bar']})")
+    checked = img_vid_run_gram_inputs(IV_SIZES, IV_GFW) | img_vid_mesh_gram_inputs()
+    if seen - checked:
+        fail(f"img_vid_mesh parity's Gram inputs {sorted(seen - checked)} not among phase 2's")
+    return out
+
+
+def run_img_vid_mesh(results: dict) -> dict[str, dict]:
+    """Phase 6k, img_vid on meshes of one card standing in for several:
+    phase 6's CLI run (``run_img_vid``: every stack, finite outputs and
+    loss logs, a non-zero dynamic term at every scale, K1's inputs and
+    launches, 10 per band per share per iteration plus captures, and the
+    off-diagonal products, 5 per band per pair of shares an iteration)
+    with ``--gpu 0,0 --mesh space:2`` and with ``--gpu 0,0,0,0 --mesh
+    frames:2,space:2`` at its first two scales (256 and 512), each beside
+    phase 6's unsharded run (s per window, wall s, peak memory); between
+    them ``check_img_vid_window_parity``.  Returns each CLI run's
+    launches."""
+    counts, summary = {}, {}
+    sizes = IV_SIZES[:IV_MESH_SCALES]
+    for i, (key, gpu, mesh) in enumerate(IV_MESH):
+        counts[f"img_vid_{key}"] = run_img_vid(results, f"img_vid_{key}", gpu, mesh, sizes)
+        if i == 0:
+            summary["window_parity"] = check_img_vid_window_parity(results)
+    beside = {}
+    for name in ("img_vid", *(f"img_vid_{key}" for key, _, _ in IV_MESH)):
+        if name not in results:  # phase 6 not run (this phase called alone)
+            continue
+        r = results[name]
+        beside[name] = {"wall_s": r["wall_s"], "peak_bytes": r["peak_bytes"], "launches": r["launches"],
+                        "off_diagonal_products": r["off_diagonal_products"],
+                        "by_scale": [{k: row[k] for k in ("size", "wall_s", "s_per_window", "ms_per_iter")}
+                                     for row in r["scales"][:IV_MESH_SCALES]]}
+    summary["beside_unsharded"] = beside
+    mesh = results.get("img_vid_frames2_space2")
+    if mesh is not None:  # the off-diagonal blocks' share of the CLI's windows, at each scale
+        summary["off_diagonal_cli"] = []
+        for row in mesh["scales"]:
+            ms = off_diagonal_ms(iv_hw(row["size"]), row["gfw"], 2, 2)
+            summary["off_diagonal_cli"].append({"size": row["size"], "ms_per_iter": ms,
+                                                "share_of_window_iter": ms / row["ms_per_iter"]})
+    print("img_vid_mesh: the CLI runs beside phase 6's unsharded run", json.dumps(summary["beside_unsharded"]),
+          json.dumps(summary.get("off_diagonal_cli")))
+    results["img_vid_mesh"] = summary
+    return counts
 
 
 def check_flow_against_cpu(results: dict, flow_models: str = "spynet,pwc") -> None:
@@ -3206,6 +3565,7 @@ def run_vid_mesh(results: dict) -> dict[str, dict]:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -3238,11 +3598,13 @@ def main() -> int:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
         for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
                   "clip_vqgan_rn50", "clip_video_style", "similarity", "fidelity", "space", "frames", "tuner_scale",
-                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames"):
+                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames",
+                  *(f"img_vid_{key}" for key, _, _ in IV_MESH)):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [gram, corr]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3258,6 +3620,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram["similarity_shapes"] = check_similarity_gram(results)
     gram["vid_img_shapes"] = check_vid_gram(results)
     gram["mesh_shapes"] = check_mesh_gram(results)
+    gram["img_vid_mesh_shapes"] = check_img_vid_mesh_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -3293,6 +3656,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     space_counts = run_space(results)
     frames_counts = run_frames(results)["frames2"]
     vid_mesh_counts = run_vid_mesh(results)
+    img_vid_mesh_counts = run_img_vid_mesh(results)
     drive_flags(results)
     check_determinism(results)
     run_tuner(results)  # last: its probes take the card's memory to its limit
@@ -3300,7 +3664,8 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
              "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,
              "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts,
-             "fidelity": fid_counts, "space": space_counts, "frames": frames_counts, **vid_mesh_counts}
+             "fidelity": fid_counts, "space": space_counts, "frames": frames_counts, **vid_mesh_counts,
+             **img_vid_mesh_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

@@ -50,8 +50,12 @@ circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
 pastiche stays on the host, each window goes up, runs, and is scattered
 back.  Windows after the first freeze the frames earlier windows styled,
 by a gradient mask or, without run-state checkpoints, by the frozen-split
-runner (``_run``).  JAX's fused pyramid program (``optimize_pyramid``) only
-saves TPU executable loads and is not ported.
+runner (``_run``).  On a mesh each window's frames are shared out to the
+rows of a "frames" axis and cut into row bands on "space"
+(``_window_layout``; JAX shards the window's frames), the losses summed
+from the pieces (``losses.evaluate_window_losses``).  JAX's fused pyramid
+program (``optimize_pyramid``) only saves TPU executable loads and is not
+ported.
 """
 
 from __future__ import annotations
@@ -72,13 +76,14 @@ from ..losses import (
     evaluate_banded_losses,
     evaluate_frame_losses,
     evaluate_losses,
+    evaluate_window_losses,
     frame_slice,
 )
 from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
-from ..parallel import build_mesh, frame_shards, mesh_rows, sharding_for, spatial
+from ..parallel import build_mesh, frame_shards, mesh_rows, sharding_for, spatial, window_shares
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
@@ -278,7 +283,8 @@ class StyleEngine:
         """``_steps`` to its end: (pastiche, opt_state, log)."""
         return _drain(self._steps(*args, **kw))
 
-    def _steps(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False):
+    def _steps(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False,
+               window=None):
         """``n_iters`` steps, a generator that yields after each; returns
         (pastiche, opt_state, (n_iters, n_losses) log).
 
@@ -298,40 +304,114 @@ class StyleEngine:
         L-BFGS (s, y) pair).  Their activations are extracted once, under
         no-grad; each iteration runs forward and backward on the middle
         slice alone, the losses see the activations concatenated in window
-        order, and ``opt_state`` covers the middle slice only."""
+        order, and ``opt_state`` covers the middle slice only.  ``window``,
+        a ``spatial.WindowLayout``: the window laid out on a mesh, the
+        pastiche its pieces and ``targets`` each share's
+        (``_window_pieces``)."""
         cfg = self.loss_cfg
         logs = []
-        banded = isinstance(pastiche, list)
-        extract = self._extract_bands if banded else self._extract
-        evaluate = evaluate_frame_losses if frames else evaluate_banded_losses if banded else evaluate_losses
-        p, fixed = pastiche, None
-        if frozen is not None:
+        if window is not None:
+            p, loss_of, assemble = self._window_pieces(window, pastiche, targets, scale, frozen)
+            if mask is not None:  # the masked runner: every piece moves
+                mask = [mask[part].to(d) for row, part in window.shares for d in row]
+        elif frozen is not None:
             fo, eo = frozen
             t_w = pastiche.shape[0]
             front, end, p = pastiche[:fo], pastiche[t_w - eo :], pastiche[fo : t_w - eo]
             with torch.no_grad():
                 fixed = self._extract(torch.cat([front, end]), cfg.all_layers)
+
+            def loss_of(p):
+                acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in self._extract(p, cfg.all_layers).items()}
+                return evaluate_losses(torch.cat([front, p, end]), acts, targets, cfg, scale)
+
+            def assemble(p):
+                return torch.cat([front, p, end])
+        else:
+            p, assemble = pastiche, _same
+            banded = isinstance(pastiche, list)
+            extract = self._extract_bands if banded else self._extract
+            evaluate = evaluate_frame_losses if frames else evaluate_banded_losses if banded else evaluate_losses
+
+            def loss_of(p):
+                return evaluate(p, extract(p, cfg.all_layers), targets, cfg, scale)
+
+        banded = isinstance(p, list)
         for _ in range(n_iters):
             p = [b.detach().requires_grad_(True) for b in p] if banded else p.detach().requires_grad_(True)
-            acts, full = extract(p, cfg.all_layers), p
-            if fixed is not None:
-                acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in acts.items()}
-                full = torch.cat([front, p, end])
-            total, per = evaluate(full, acts, targets, cfg, scale)
+            total, per = loss_of(p)
             grads = [g.float() for g in torch.autograd.grad(total, p)]
-            grad = grads if banded else grads[0] if mask is None else grads[0] * mask
-            upd, opt_state = opt.update(grad, opt_state)
+            if mask is not None:
+                grads = [g * m for g, m in zip(grads, mask if banded else [mask])]
+            upd, opt_state = opt.update(grads if banded else grads[0], opt_state)
             p = [b.detach() + u for b, u in zip(p, upd)] if banded else p.detach() + upd
             logs.append(per.detach())
             yield
-        if fixed is not None:
-            p = torch.cat([front, p, end])
+        p = assemble(p)
         one = p[0] if banded else p
         log = torch.stack(logs) if logs else one.new_zeros((0, *one.shape[:frames], len(cfg.loss_names())))
         return p, opt_state, log
 
+    def _window_pieces(self, layout, pieces, targets, scale, frozen):
+        """An img_vid window laid out on the mesh, for ``_steps``: (the
+        pieces that move, the window's loss of them, and a function of them
+        back to every piece of the window).  ``targets`` holds each share's
+        (``_share_targets``).  Each share's forward runs on its row
+        (``_extract_row``), and ``evaluate_window_losses`` sums the shares.
+        Under the frozen split ``frozen=(fo, eo)`` each share's frozen
+        frames are cut off its bands and their activations extracted once,
+        on its row."""
+        layers = self.loss_cfg.all_layers
+        shares = []  # (row, frames frozen at its start, at its end, bands, the frozen frames' activations)
+        for (row, _), bands, (a, e) in zip(layout.shares, layout.by_share(pieces), layout.frozen_cut(frozen)):
+            fixed = None
+            if a + e:
+                n = bands[0].shape[0]
+                with torch.no_grad():
+                    fixed = self._extract_row(row, [torch.cat([b[:a], b[n - e :]]) for b in bands], layers)
+            shares.append((row, a, e, bands, fixed))
+
+        def windowed(p):
+            """Per share: its bands with the moving pieces ``p`` put back,
+            and its moving bands (None where every frame is frozen)."""
+            it, out = iter(p), []
+            for _, a, e, bands, _ in shares:
+                n = bands[0].shape[0]
+                if n == a + e:
+                    out.append((bands, None))
+                    continue
+                mid = [next(it) for _ in bands]
+                out.append(([m if a + e == 0 else torch.cat([b[:a], m, b[n - e :]]) for b, m in zip(bands, mid)], mid))
+            return out
+
+        def loss_of(p):
+            full, acts = [], []
+            for (row, a, _, _, fixed), (bands, mid) in zip(shares, windowed(p)):
+                act = self._extract_row(row, mid, layers) if mid is not None else None
+                if fixed is not None:
+                    act = fixed if act is None else {
+                        l: [torch.cat([fx[:a], m, fx[a:]]) for fx, m in zip(fixed[l], act[l])] for l in layers}
+                full.append(bands)
+                acts.append(act)
+            return evaluate_window_losses(full, acts, targets, self.loss_cfg, scale)
+
+        def assemble(p):
+            return [b for bands, _ in windowed(p) for b in bands]
+
+        moving = layout.moving(pieces, frozen)
+        return moving, loss_of, assemble
+
+    def _extract_row(self, row, bands, layers) -> dict[str, list]:
+        """The activations ({layer: [band activations]}) of one row's bands
+        (a share of an img_vid window), by the row's replica: band by band
+        with halo rows on a row of several devices, its plain forward on a
+        row of one."""
+        if len(bands) == 1:
+            return {l: [a] for l, a in self._replica(row[:1])._extract(bands[0], layers).items()}
+        return self._replica(row)._extract_bands(bands, layers)
+
     def _iterate(self, p, opt, st, targets, scale, num_iters, done, after_chunk, *, save_iter, print_iter,
-                 checkpoint_every, profile_dir, mask=None, frozen=None):
+                 checkpoint_every, profile_dir, mask=None, frozen=None, window=None):
         """Iterations ``done`` .. ``num_iters`` in chunks of ``save_iter``,
         ``checkpoint_every`` and ``print_iter``; the loss values stay on the
         device within a chunk.  ``after_chunk(p, st, done)`` runs after each
@@ -344,11 +424,12 @@ class StyleEngine:
         logs = []
         while done < num_iters:
             this = min(chunk, num_iters - done)
+            kw = dict(mask=mask, frozen=frozen, window=window)
             if profile_dir is not None:
-                p, st, log = self._profiled_run(profile_dir, p, opt, st, targets, scale, this, mask=mask, frozen=frozen)
+                p, st, log = self._profiled_run(profile_dir, p, opt, st, targets, scale, this, **kw)
                 profile_dir = None
             else:
-                p, st, log = self._run(p, opt, st, targets, scale, this, mask=mask, frozen=frozen)
+                p, st, log = self._run(p, opt, st, targets, scale, this, **kw)
             done += this
             logs.append(log.cpu().numpy())
             if print_iter > 0 and (done // print_iter > (done - this) // print_iter or done == num_iters):
@@ -402,8 +483,6 @@ class StyleEngine:
         """
         if transfer_type not in ("img_img", "vid_img", "img_vid"):
             raise ValueError(f"unknown transfer_type {transfer_type!r}")
-        if transfer_type == "img_vid" and self.mesh is not None:
-            raise NotImplementedError(f"img_vid's windows on a mesh ({self.mesh.axes}) are ROADMAP item 18c")
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         targets = {"content": self.content_targets(content)}
@@ -465,7 +544,13 @@ class StyleEngine:
 
     def _optimize_windows(self, targets, styles, blend_weights, init, num_iters, gfw, avg_frame_window,
                           save_callback, run_checkpoint, loop) -> np.ndarray:
-        """img_vid's window loop (JAX optimize.py:907-1069)."""
+        """img_vid's window loop (JAX optimize.py:907-1069).  On a mesh each
+        window is laid out in pieces (``_window_layout``), its targets are
+        copied to the rows that read them (``_share_targets``), and the
+        optimiser state is kept piece by piece, one problem over the
+        window's pieces; snapshots, results and run-state checkpoints are
+        gathered to the single-device layout, so a mesh run and a
+        one-device run resume each other's state."""
         dev = self.device
         styles = [np.asarray(s, np.float32) for s in styles]
         output = np.array(init, np.float32)  # the whole pastiche stays on the host
@@ -479,8 +564,10 @@ class StyleEngine:
             return {"pastiche": p, "output": torch.from_numpy(output)}
 
         resume = None
+        like = torch.empty((len(wrapping_indices(total, 0, gfw)), 3, *output.shape[1:3]), device=dev)
+        # the state's window-sized entries, kept piece by piece on a mesh
+        per_piece = {k for k, v in opt.init([like.to("meta")]).items() if isinstance(v, list)}
         if run_checkpoint is not None:
-            like = torch.empty((len(wrapping_indices(total, 0, gfw)), 3, *output.shape[1:3]), device=dev)
             # restored to the device of the first template; the state's
             # template only gives shapes and dtypes
             resume = load_state(run_checkpoint, {"pastiche": like, "output": torch.empty(output.shape)},
@@ -502,6 +589,8 @@ class StyleEngine:
                 self._set_style_video_targets(targets, current, blend_weights, gfw)
             # sized to the actual window: a 1-frame pastiche has 1-frame windows
             t_w = len(idx)
+            layout = self._window_layout(t_w, output.shape[1:3])
+            split, gather = (layout.split, lambda x, layout=layout: layout.gather(x, dev)) if layout else (_same, _same)
             mask, frozen = None, None
             if w != 0:
                 fo, eo = max(0, min(front, t_w)), (min(end, t_w) if end > 0 else 0)
@@ -512,35 +601,88 @@ class StyleEngine:
                 else:
                     mask = torch.from_numpy(overlap_grad_mask(t_w, w, front, end)).to(dev)
             scale = dict(self._strength_scale(targets))
-            pastiche = to_nchw(output[idx], dev)
-            opt_state = opt.init(pastiche if frozen is None else pastiche[frozen[0] : t_w - frozen[1]])
+            pastiche = split(to_nchw(output[idx], dev))
+            opt_state = opt.init(layout.moving(pastiche, frozen) if layout else
+                                 pastiche if frozen is None else pastiche[frozen[0] : t_w - frozen[1]])
             done = 0
             if resume is not None:
                 # a checkpoint from a window's end (done 0) starts this window
                 # afresh from the saved output (JAX would resume it from the
                 # previous window's pastiche and optimizer state)
                 if resume[3] > 0:
-                    pastiche, opt_state, done = resume[0]["pastiche"], resume[1], resume[3]
+                    pastiche, done = split(resume[0]["pastiche"]), resume[3]
+                    opt_state = {k: split(v) if k in per_piece else v for k, v in resume[1].items()}
                 resume = None
 
-            def after_chunk(p, st, done, w=w):
+            def after_chunk(p, st, done, w=w, gather=gather):
+                p = gather(p)
                 if save_callback is not None:
                     save_callback(to_nhwc(p), w * num_iters + done)
                 if run_checkpoint is not None:
-                    save_state(run_checkpoint, blob(p), st, w, done)
+                    save_state(run_checkpoint, blob(p), {k: gather(v) if k in per_piece else v for k, v in st.items()},
+                               w, done)
 
-            pastiche, opt_state, wlogs = self._iterate(pastiche, opt, opt_state, targets, scale, num_iters, done,
-                                                       after_chunk, mask=mask, frozen=frozen, **loop)
+            pastiche, opt_state, wlogs = self._iterate(
+                pastiche, opt, opt_state, self._share_targets(targets, layout) if layout else targets, scale,
+                num_iters, done, after_chunk, mask=mask, frozen=frozen, window=layout, **loop)
             loop["profile_dir"] = None  # the first window's first chunk only
             logs += wlogs
+            pastiche = gather(pastiche)
             output[idx] = to_nhwc(pastiche)
             if run_checkpoint is not None and w + 1 < len(windows[0]):
-                save_state(run_checkpoint, blob(pastiche), opt_state, w + 1, 0)
+                save_state(run_checkpoint, blob(pastiche),
+                           {k: gather(v) if k in per_piece else v for k, v in opt_state.items()}, w + 1, 0)
 
         if run_checkpoint is not None:
             shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
         self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
         return output
+
+    def _window_layout(self, t_w: int, hw) -> "spatial.WindowLayout | None":
+        """A ``t_w``-frame window of (H, W) frames on the mesh: its frames
+        in shares over the "frames" axis's rows (``parallel.window_shares``;
+        an empty share's row sits idle), each share in row bands over its
+        row's "space" devices; None on one device."""
+        if self.sharding is None:
+            return None
+        h, w = (int(v) for v in hw)
+        shares = [(row, part) for row, part in window_shares(self.sharding, t_w) if part.stop > part.start]
+        bands = len(shares[0][0])
+        heights = spatial.band_rows(h, bands, self.band_align) if bands > 1 else [h]
+        return spatial.WindowLayout(shares, heights, 3, w)
+
+    def _share_targets(self, targets: dict, layout) -> list[dict]:
+        """Each share's targets, on its row, for ``evaluate_window_losses``:
+        the content (and temporal) targets (captured on the first row,
+        banded on a "space" mesh) copied band by band to the row and
+        expanded to the share's frames, the static style targets, and the
+        blocks of the dynamic target (captured whole on the first device)
+        that the share's block row of ``video_gram_blocks`` meets."""
+        t_w = layout.frames
+        out = []
+        for i, (row, part) in enumerate(layout.shares):
+            n = part.stop - part.start
+
+            def bands(t):
+                return [b.to(d).expand(n, *b.shape[1:]) for b, d in zip(t if isinstance(t, list) else [t], row)]
+
+            one = {"content": {l: bands(t) for l, t in targets.get("content", {}).items()},
+                   "style": {l: t.to(row[0]) for l, t in targets.get("style", {}).items()}}
+            if targets.get("temporal") is not None:
+                one["temporal"] = {k: bands(v) for k, v in targets["temporal"].items()}
+            dynamic = {}
+            for l, t in targets.get("style_video", {}).items():
+                c = targets["style"][l].shape[0]
+                if t.shape[0] != t_w * c:  # a window shorter than the target's (loss.py:165-166)
+                    continue
+                mine = slice(part.start * c, part.stop * c)
+                dynamic[l] = [(t[mine, k.start * c : k.stop * c].to(row[0]),
+                               t[k.start * c : k.stop * c, mine].to(row[0]) if j > i else None)
+                              for j, (_, k) in enumerate(layout.shares) if j >= i]
+            if dynamic:
+                one["style_video"] = dynamic
+            out.append(one)
+        return out
 
     def _profiled_run(self, profile_dir, *run_args, **run_kw):
         from torch.profiler import ProfilerActivity, profile

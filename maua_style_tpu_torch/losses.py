@@ -22,6 +22,9 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
 - ``evaluate_banded_losses``: a pastiche cut into row bands over a
   "space" mesh (img_img, vid_img's frames), the same values from per-band
   sums.
+- ``evaluate_window_losses``: an img_vid window laid out on a mesh, shares
+  of frames each cut into row bands, the same values as ``evaluate_losses``
+  of the whole window.
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
@@ -35,7 +38,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from .ops.gram import banded_gram, batch_gram, video_gram
+from .ops.gram import banded_gram, batch_gram, video_gram, video_gram_blocks
 from .parallel.spatial import sum_on
 
 
@@ -370,6 +373,58 @@ def evaluate_banded_losses(
     return per.sum(), per
 
 
+def evaluate_window_losses(
+    shares: Sequence[Sequence[torch.Tensor]],
+    acts: Sequence[dict[str, list]],
+    targets: Sequence[dict[str, Any]],
+    cfg: LossConfig,
+    strength_scale: dict[str, float] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``evaluate_losses`` of an img_vid window of T frames laid out on a
+    mesh: ``shares[i]`` holds share i's (T_i, 3, h_j, W) row bands,
+    ``acts[i]`` their activations ({layer: [band activations]}) and
+    ``targets[i]`` the targets on share i's row: the content (and temporal)
+    targets as bands expanded to T_i frames, the static style targets, and
+    under "style_video" the dynamic target's blocks that share i's block
+    row of ``video_gram_blocks`` meets, [(T_ik, T_ki or None) for k >= i].
+
+    Each frame's content, static style, TV and temporal values are its
+    ``evaluate_banded_losses`` (``evaluate_frame_losses`` per share: each
+    style layer's Grams one ``banded_gram`` over the share); the window's
+    values are their sums on the first device, divided by T but for TV, as
+    ``evaluate_losses`` divides each frame's term.  The dynamic term is the
+    MSE of the blocks over the whole window's counts, each share's squared
+    errors summed on its row and then on the first device, so gradient
+    normalisation acts on one scalar per layer as it does unsharded."""
+    dev = shares[0][0].device
+    scale = strength_scale or {}
+    frames = sum(bands[0].shape[0] for bands in shares)
+    per = sum_on(dev, [evaluate_frame_losses(list(bands), a, t, cfg, strength_scale)[1].sum(dim=0)
+                       for bands, a, t in zip(shares, acts, targets)])
+    is_tv = torch.tensor([n == "tv" for n in cfg.loss_names()], device=dev)
+    values = list(torch.where(is_tv, per, per / frames).unbind())
+    first_style = len(cfg.content_layers)
+    for k, l in enumerate(cfg.style_layers):
+        pieces = [t.get("style_video", {}).get(l) for t in targets]
+        if cfg.video_style_factor <= 0 or pieces[0] is None:
+            continue
+        blocks = video_gram_blocks([a[l] for a in acts], cfg.use_covariance)
+        band = acts[0][l]
+        n = frames * band[0].shape[1] * sum(x.shape[2] for x in band) * band[0].shape[3]
+        sq = []
+        for row, own in zip(blocks, pieces):
+            parts = [torch.sum(torch.square(g / n - t_ik)) for g, (t_ik, _) in zip(row, own)]
+            parts += [torch.sum(torch.square(g.transpose(0, 1) / n - t_ki)) for g, (_, t_ki) in zip(row, own)
+                      if t_ki is not None]
+            sq.append(sum_on(row[0].device, parts))
+        mse = sum_on(dev, sq) / (frames * band[0].shape[1]) ** 2
+        strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
+        values[first_style + k] = values[first_style + k] + cfg.video_style_factor * _term(
+            mse, strength, frames, cfg.normalize_gradients)
+    per = torch.stack(values)
+    return per.sum(), per
+
+
 __all__ = [
     "LossConfig",
     "scale_gradients",
@@ -381,6 +436,7 @@ __all__ = [
     "evaluate_losses",
     "evaluate_frame_losses",
     "evaluate_banded_losses",
+    "evaluate_window_losses",
     "frame_slice",
     "banded_tv_loss",
 ]

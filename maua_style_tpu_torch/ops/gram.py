@@ -20,6 +20,15 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
 - ``video_gram``: the whole-window ("dynamic texture") Gram of img_vid,
   (T, C, H, W) -> (T·C, T·C): ``batch_gram`` of the (1, T·C, H, W) view,
   so it runs the same kernel.
+- The whole-window Gram of a window laid out on a mesh
+  (``parallel.window_shares``, ``parallel/spatial.py``):
+  ``banded_video_gram`` of one share's row bands (K1 per band on its
+  (1, T·C, hᵢ·W) view, summed), and ``video_gram_blocks`` /
+  ``shared_video_gram`` of shares of frames: the diagonal block of each
+  share is its ``banded_video_gram``, and each block FᵢFⱼᵀ above it a plain
+  ``torch.matmul`` on share i's device after copying Fⱼ there (JAX computes
+  ``video_gram`` as a ``dot_general`` outside any Pallas kernel,
+  ops/gram.py:96-104); the block below is its transpose.
 """
 
 from __future__ import annotations
@@ -194,6 +203,19 @@ def video_gram(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return batch_gram(x.reshape(1, t * c, *x.shape[2:]), use_covariance)[0]
 
 
+def _band_features(bands, use_covariance: bool) -> list:
+    """(B, C, h_i, W) bands -> their (B, C, h_i·W) feature views; with
+    ``use_covariance`` each frame's channels centred by their means over
+    the whole image, summed from the bands."""
+    fs = [x.reshape(x.shape[0], x.shape[1], -1) for x in bands]
+    if use_covariance:
+        n = sum(f.shape[2] for f in fs)
+        acc = torch.promote_types(fs[0].dtype, torch.float32)  # f32 sums for bf16 bands
+        mean = sum_on(fs[0].device, [f.sum(dim=2, keepdim=True, dtype=acc) for f in fs]) / n
+        fs = [f - mean.to(device=f.device, dtype=f.dtype) for f in fs]
+    return fs
+
+
 def banded_gram(bands, use_covariance: bool = False) -> torch.Tensor:
     """Per-frame unnormalised Grams of a stack cut into row bands, (B, C,
     h_i, W) each on its own device: each band's Grams through ``_GramFn``
@@ -203,14 +225,61 @@ def banded_gram(bands, use_covariance: bool = False) -> torch.Tensor:
     that frame's channel means over the whole image, summed from the
     bands.  The backward of the sum hands each band the summed Grams'
     gradient, once."""
-    dev = bands[0].device
-    fs = [x.reshape(x.shape[0], x.shape[1], -1) for x in bands]
-    if use_covariance:
-        n = sum(f.shape[2] for f in fs)
-        acc = torch.promote_types(fs[0].dtype, torch.float32)  # f32 sums for bf16 bands
-        mean = sum_on(dev, [f.sum(dim=2, keepdim=True, dtype=acc) for f in fs]) / n
-        fs = [f - mean.to(device=f.device, dtype=f.dtype) for f in fs]
-    return sum_on(dev, [_GramFn.apply(f) for f in fs])
+    return sum_on(bands[0].device, [_GramFn.apply(f) for f in _band_features(bands, use_covariance)])
+
+
+def _window_view(x: torch.Tensor) -> torch.Tensor:
+    """(T, C, h, W) -> the (1, T·C, h, W) view whose rows are JAX's
+    frame-major (T·C, HW) feature matrix."""
+    return x.reshape(1, x.shape[0] * x.shape[1], *x.shape[2:])
+
+
+def banded_video_gram(bands, use_covariance: bool = False) -> torch.Tensor:
+    """``video_gram`` of a window cut into row bands, (T, C, h_i, W) each on
+    its own device: the sum over bands of each band's (1, T·C, h_i·W) K1
+    Gram, on the first band's device -> (T·C, T·C) f32; with
+    ``use_covariance`` each (frame, channel) row centred by its whole-frame
+    mean, summed from the bands (``banded_gram`` of the window views)."""
+    return banded_gram([_window_view(x) for x in bands], use_covariance)[0]
+
+
+def _cross_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An off-diagonal block of the whole-window Gram, (R, N) x (S, N) ->
+    (R, S) f32 on ``a``'s device, ``b`` copied there (autograd carries its
+    gradient back through the copy)."""
+    return torch.matmul(a.float(), b.to(a.device).float().transpose(0, 1))
+
+
+def video_gram_blocks(shares, use_covariance: bool = False) -> list[list[torch.Tensor]]:
+    """The whole-window Gram of a window cut into shares of frames, each a
+    list of row bands ((T_i, C, h_j, W) each; every share has the same band
+    heights), as blocks on and above the diagonal: row i is [G_ii, G_i,i+1,
+    ...], each (T_i·C, T_k·C) f32 on share i's first device.  G_ii is the
+    share's ``banded_video_gram``; G_ik = Σ_j F_ij F_kjᵀ (band j of both
+    shares) is a plain product per band on share i's band-j device, summed
+    on its first device.  ``use_covariance`` centres each share's rows as
+    ``banded_video_gram`` does.  G_ki is G_ikᵀ."""
+    fs = [_band_features([_window_view(x) for x in bands], use_covariance) for bands in shares]
+    rows = []
+    for i, fi in enumerate(fs):
+        dev = fi[0].device
+        row = [sum_on(dev, [_GramFn.apply(f)[0] for f in fi])]
+        row += [sum_on(dev, [_cross_block(a[0], b[0]) for a, b in zip(fi, fk)]) for fk in fs[i + 1 :]]
+        rows.append(row)
+    return rows
+
+
+def shared_video_gram(shares, use_covariance: bool = False) -> torch.Tensor:
+    """``video_gram`` of a window cut into shares of frames (each a list of
+    row bands): ``video_gram_blocks`` assembled into the (T·C, T·C) matrix
+    on the first share's device."""
+    blocks = video_gram_blocks(shares, use_covariance)
+    dev = blocks[0][0].device
+    rows = []
+    for i, row in enumerate(blocks):
+        below = [blocks[k][i - k].transpose(0, 1).to(dev) for k in range(i)]
+        rows.append(torch.cat(below + [b.to(dev) for b in row], dim=1))
+    return torch.cat(rows)
 
 
 def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
@@ -221,4 +290,5 @@ def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     return batch_gram(x, use_covariance)[0]
 
 
-__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "banded_gram", "video_gram", "gram_matrix"]
+__all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "banded_gram", "video_gram", "banded_video_gram",
+           "video_gram_blocks", "shared_video_gram", "gram_matrix"]

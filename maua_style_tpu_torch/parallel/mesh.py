@@ -8,10 +8,11 @@ several, as JAX's virtual CPU devices do, and the code runs exactly as it
 would on distinct cards.
 
 Axes: "space" cuts a pastiche's rows into bands (``parallel/spatial.py``;
-img_img and vid_img's frames), "frames" shares a stacked batch of
-independent frames out to the rows of the mesh (vid_img's first pass,
-``StyleEngine.optimize_frames``), each row one frames index and all its
-"space" devices; "tensor" (channels) is not ported.
+img_img, vid_img's frames and img_vid's windows), "frames" shares a stacked
+batch of independent frames out to the rows of the mesh (vid_img's first
+pass, ``StyleEngine.optimize_frames``) and an img_vid window's frames
+(``window_shares``), each row one frames index and all its "space"
+devices; "tensor" (channels) is not ported.
 """
 
 from __future__ import annotations
@@ -119,4 +120,24 @@ def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[tuple[torc
     return [(row, slice(i * per, (i + 1) * per)) for i, row in enumerate(mesh_rows(sharding.mesh))]
 
 
-__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "frame_shards"]
+def window_shares(sharding: Sharding, t_w: int) -> list[tuple[tuple[torch.device, ...], slice]]:
+    """An img_vid window's ``t_w`` frames cut into contiguous shares in
+    window order, (row, frames) per row of the mesh (``mesh_rows``), as even
+    as possible with the larger shares first: 9 frames on frames:2 give 5 +
+    4.  Unlike ``frame_shards`` an undividable window is still shared out,
+    as JAX's GSPMD pads an uneven frames dim and shards it.  A share is
+    empty only where ``t_w`` is smaller than the axis (its row then sits
+    idle); without a "frames" axis the one share is every frame on the
+    mesh's one row."""
+    rows = mesh_rows(sharding.mesh) if sharding.spec[_DIMS["frames"]] == "frames" else mesh_rows(sharding.mesh)[:1]
+    per, extra = divmod(t_w, len(rows))
+    out, start = [], 0
+    for i, row in enumerate(rows):
+        n = per + (i < extra)
+        out.append((row, slice(start, start + n)))
+        start += n
+    return out
+
+
+__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "frame_shards",
+           "window_shares"]

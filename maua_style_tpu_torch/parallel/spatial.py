@@ -21,12 +21,15 @@ exchange is written out here).
 
 The optimiser state of a banded pastiche is kept band by band (lists of
 tensors, ``engine/lbfgs.py``); ``split_rows`` and ``gather_rows`` move a
-pastiche-sized tensor, or a state's, between the whole layout and bands.
+pastiche-sized tensor, or a state's, between the whole layout and bands,
+and a ``WindowLayout`` an img_vid window's, whose frames are also shared
+out to the rows of a "frames" axis (``parallel.window_shares``): one piece
+per share and band.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -148,6 +151,71 @@ def gather_rows(pieces: Sequence[torch.Tensor], heights: Sequence[int], device, 
     return whole if image else whole.reshape(*lead, -1)
 
 
+class WindowLayout(NamedTuple):
+    """An img_vid window of ``frames`` frames on a mesh: ``shares``, (row,
+    frames) per non-empty share of ``parallel.window_shares``, each share's
+    frames cut into row bands of ``heights``, band j on ``row[j]``.  A
+    window-sized tensor is one piece per share and band, share-major."""
+
+    shares: list
+    heights: list[int]
+    channels: int
+    width: int
+
+    @property
+    def frames(self) -> int:
+        return self.shares[-1][1].stop
+
+    def split(self, x: torch.Tensor) -> list:
+        """A window-sized (T, C, H, W) image or flat (..., T·C·H·W) vector
+        in NCHW order -> its pieces, each in the same form and its own
+        storage."""
+        image = x.dim() == 4 and tuple(x.shape[1:]) == (self.channels, sum(self.heights), self.width)
+        out = []
+        for row, part in self.shares:
+            if image:
+                out += split_rows(x[part], self.heights, row, self.channels, self.width)
+            else:
+                frames = x.reshape(*x.shape[:-1], self.frames, -1)[..., part, :]
+                out += [b.reshape(*b.shape[:-2], -1)
+                        for b in split_rows(frames, self.heights, row, self.channels, self.width)]
+        return out
+
+    def gather(self, pieces: Sequence[torch.Tensor], device) -> torch.Tensor:
+        """``split``'s inverse: the pieces back to one tensor on ``device``."""
+        image = pieces[0].dim() == 4 and tuple(pieces[0].shape[1:]) == (self.channels, self.heights[0], self.width)
+        out = []
+        for (_, part), own in zip(self.shares, self.by_share(pieces)):
+            if not image:  # each band's flat (..., T_i·C·h·W) as (..., T_i, C·h·W)
+                own = [p.reshape(*p.shape[:-1], part.stop - part.start, -1) for p in own]
+            out.append(gather_rows(own, self.heights, device, self.channels, self.width))
+        return torch.cat(out) if image else torch.cat(out, dim=-2).flatten(-2)
+
+    def by_share(self, pieces: Sequence) -> list[list]:
+        """The pieces grouped by share, each group in band order."""
+        n = len(self.heights)
+        return [list(pieces[i * n : (i + 1) * n]) for i in range(len(self.shares))]
+
+    def frozen_cut(self, frozen: tuple[int, int] | None) -> list[tuple[int, int]]:
+        """Under img_vid's frozen split ``(fo, eo)`` (the window's first fo
+        and last eo frames never move), each share's frozen frames at its
+        start and at its end."""
+        fo, eo = frozen or (0, 0)
+        out = []
+        for _, part in self.shares:
+            n = part.stop - part.start
+            a = min(max(fo - part.start, 0), n)
+            out.append((a, min(max(part.stop - (self.frames - eo), 0), n - a)))
+        return out
+
+    def moving(self, pieces: Sequence[torch.Tensor], frozen: tuple[int, int] | None) -> list:
+        """The pieces' frames that move under the frozen split (every frame
+        without one), in piece order; a share whose frames are all frozen
+        has none."""
+        return [b[a : b.shape[0] - e] for share, (a, e) in zip(self.by_share(pieces), self.frozen_cut(frozen))
+                for b in share if b.shape[0] > a + e]
+
+
 def level_heights(heights: Sequence[int], stride: int) -> list[int]:
     """Band heights after pools of total stride ``stride`` (floor mode: the
     ragged rows of the last band drop)."""
@@ -165,4 +233,4 @@ def sum_on(device, values: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 __all__ = ["band_alignment", "band_rows", "halo_pad", "banded_forward", "split_rows", "gather_rows",
-           "level_heights", "sum_on"]
+           "WindowLayout", "level_heights", "sum_on"]

@@ -7,7 +7,9 @@ grids, then img_img style transfer of every image with each neighbour and
 with each pair of its neighbours.  Paths are arguments instead of the
 reference's hard-coded dataset folder (similarity.py:24-25).  The host
 steps are numpy and PIL; every job is the port's img_img, on CUDA device 0
-unless ``--gpu c`` asks for the CPU.
+unless ``--gpu c`` asks for the CPU, and on the mesh of a preset's
+``--gpu``/``--mesh`` (row bands on "space"), as JAX runs every job with the
+preset's devices.
 
 Usage: python -m maua_style_tpu_torch.pipelines.similarity DATASET_DIR [--args preset.json] [--grids] [--gpu c]
 """
@@ -92,7 +94,7 @@ def run(dataset_dir: str, args, *, pattern: str = "*", grids: bool = False, dry_
     triple (reference similarity.py:91-98); returns the (content, styles)
     jobs.  ``args`` is set anew for each job and run through
     ``config.postprocess``."""
-    from ..config import postprocess, single_device
+    from ..config import postprocess
     from .img_img import img_img
 
     images = sorted(
@@ -119,7 +121,6 @@ def run(dataset_dir: str, args, *, pattern: str = "*", grids: bool = False, dry_
     if dry_run:
         return jobs
 
-    single_device(args, "similarity's jobs", "18j")
     for content, styles in jobs:
         args.content = content
         args.style = styles

@@ -7,7 +7,8 @@ against the unbanded one, ``StyleEngine.optimize`` on "space" and
 tests/test_parallel.py's cases and bars), the style CLI with ``--gpu c
 --mesh space:2`` against JAX's, the frame loop's auto batch, and the raise
 of every path left on one device (vid_img's paths on "space" and on
-combined meshes: ``tests/test_torch_parallel_video.py``)."""
+combined meshes: ``tests/test_torch_parallel_video.py``; img_vid's windows
+and similarity's jobs: ``tests/test_torch_parallel_windows.py``)."""
 
 import argparse
 import os
@@ -378,15 +379,16 @@ def _two_cards(monkeypatch):
 
 
 def test_engine_paths_left_unsharded_raise():
+    """The "tensor" axis (18e) and NIN on "space" (18k) raise, for img_vid's
+    windows too (item 18c runs them on "frames" and "space" meshes,
+    tests/test_torch_parallel_windows.py)."""
     rng = np.random.default_rng(0)
     u8 = rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
     style = rng.random((1, 32, 32, 3), np.float32)
-    for mesh in (_mesh([("space", 2)]), _mesh([("frames", 2)])):
-        with pytest.raises(NotImplementedError, match="item 18c"):
-            _small_engine(mesh).optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32), 1,
-                                         transfer_type="img_vid", gram_frame_window=2)
-    with pytest.raises(NotImplementedError, match="item 18e"):
-        _small_engine(_mesh([("space", 2), ("tensor", 2)]))
+    for axes in ([("space", 2), ("tensor", 2)], [("frames", 2), ("tensor", 2)]):
+        with pytest.raises(NotImplementedError, match="item 18e"):
+            _small_engine(_mesh(axes)).optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32),
+                                                1, transfer_type="img_vid", gram_frame_window=2)
     spec = select_model("nin")
     nin_cfg = LossConfig(content_layers=("relu8",), style_layers=("relu1",))
     with pytest.raises(NotImplementedError, match="item 18k"):
@@ -401,9 +403,11 @@ def test_engine_paths_left_unsharded_raise():
 
 def test_single_device_clis_raise_on_a_mesh(tmp_path, monkeypatch):
     """clip_vqgan, the NCA trainer and generator on ``--gpu 0,1`` (two
-    cards faked: nothing reaches CUDA before the raise), clip_video_style
-    and similarity's jobs on ``--gpu c --mesh space:2``."""
-    from maua_style_tpu_torch.pipelines import clip_video_style, clip_vqgan, nca_gen, nca_train, similarity
+    cards faked: nothing reaches CUDA before the raise) and clip_video_style
+    on ``--gpu c --mesh space:2`` raise; similarity's jobs run on that mesh,
+    as JAX runs them with the preset's devices (pipelines/similarity.py:
+    123-130; their results: tests/test_torch_parallel_windows.py)."""
+    from maua_style_tpu_torch.pipelines import clip_video_style, clip_vqgan, img_img, nca_gen, nca_train, similarity
 
     _two_cards(monkeypatch)
     with pytest.raises(NotImplementedError, match="item 18d"):
@@ -419,5 +423,7 @@ def test_single_device_clis_raise_on_a_mesh(tmp_path, monkeypatch):
     data.mkdir()
     for i in range(3):
         Image.fromarray(np.full((8, 8, 3), 60 * i, np.uint8)).save(data / f"im{i}.png")
-    with pytest.raises(NotImplementedError, match="item 18j"):
-        similarity.run(str(data), args)
+    jobs = []
+    monkeypatch.setattr(img_img, "img_img", lambda a: jobs.append((a.content, a.devices, a.mesh_shape)))
+    assert len(similarity.run(str(data), args)) == len(jobs) == 9
+    assert all(devices == [CPU, CPU] and mesh == [("space", 2)] for _, devices, mesh in jobs)

@@ -1,7 +1,8 @@
-"""The "space" mesh on a card: one banded step on ``[cuda:0, cuda:0]``
+"""Meshes on a card: one banded step on ``[cuda:0, cuda:0]``
 against the unbanded step, for img_img and for a vid_img frame
-(``optimize_frame`` with the temporal term), and K1 at the bands' shapes
-against its plain version.
+(``optimize_frame`` with the temporal term), img_vid's windows on
+frames:2 against unsharded, and K1 at the bands' shapes against its plain
+version.
 
 These tests import no JAX, so they also run on a GPU host without it:
 
@@ -120,3 +121,36 @@ def test_optimize_frame_step_on_one_card_twice():
     assert l0[0, -1] > 0  # the temporal term is on
     np.testing.assert_allclose(l2, l0, rtol=1e-5, atol=0)
     assert float((q2 - q0).abs().max() / (q0 - p0).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_img_vid_windows_on_frames2_of_one_card():
+    """img_vid on ``[cuda:0, cuda:0]`` frames:2 against unsharded: a 4-frame
+    pastiche of 64x48 in windows of 4 (each window's frames 2 + 2), VGG-19
+    with the default layers, video_style_factor 100, L-BFGS from 0.001·N(0,
+    1), 3 iterations a window, TF32 off, ``cudnn.deterministic``: every
+    total within rtol 1e-4 and each window's first two within 1e-5, mean|Δ|
+    within 1e-2 of mean|p|; K1 10 launches an iteration a share (5 static
+    Grams, 5 diagonal blocks of the whole-window Gram) after the target
+    capture's 10."""
+    _card()
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(0)
+    content = rng.random((1, 64, 48, 3), np.float32) * 200 - 100
+    video = rng.random((4, 64, 48, 3), np.float32) * 200 - 100
+    init = rng.normal(0, 0.001, (4, 64, 48, 3)).astype(np.float32)
+
+    def run(mesh):
+        engine = StyleEngine(spec, params, LossConfig(video_style_factor=100.0), device=dev, mesh=mesh)
+        before = G.gram.launches
+        out = engine.optimize(content, [video], init, 3, transfer_type="img_vid", gram_frame_window=4)
+        torch.cuda.synchronize()
+        return out, engine.last_loss_log, G.gram.launches - before
+
+    (p0, l0, n0), (p2, l2, n2) = run(None), run(build_mesh([dev] * 2, [("frames", 2)]))
+    assert (n0, n2) == (10 + 2 * 3 * 10, 10 + 2 * 3 * 20)
+    rtol = np.abs(l2.sum(axis=1) - l0.sum(axis=1)) / np.abs(l0.sum(axis=1))
+    assert rtol.max() <= 1e-4 and rtol.reshape(2, 3)[:, :2].max() <= 1e-5, rtol
+    assert np.abs(p2 - p0).mean() <= 1e-2 * np.abs(p0).mean()
