@@ -33,7 +33,10 @@ Phases, each of which must pass (nothing is caught and passed over):
    and of one 1024x576 frame, (B, C, N/2); and at phase 6k's: the row
    bands of img_vid's windows, (gfw, C, N_j) and (1, gfw·C, N_j), and the
    "frames" shares, (T_i, C, N) and (1, T_i·C, N), whole and banded (9 + 9
-   frames at 256, 5 + 4 at 512, 4 + 3 at 724).
+   frames at 256, 5 + 4 at 512, 4 + 3 at 724); and at phase 6l's: NIN's
+   six style layers (relu1 … relu11) of a 9088² image whole and in its two
+   row bands, (1, 96, 5152900) … (1, 1024, 39903), and of the CLI's 256²
+   and 512² whole and banded.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -192,6 +195,29 @@ Phases, each of which must pass (nothing is caught and passed over):
    and mean|Δ| within twice the unsharded run's own from an init one f32
    spacing off; and the off-diagonal products' device ms an iteration and
    their share of a window's.
+6l. NIN on "space", one card standing in for two (configs/scaling-img.json's
+   "9088" row: NIN, style relu1,3,5,7,9,11, content relu8, Adam, lr 1, on
+   space:2; seeded random weights, f32, TF32 off): ``StyleEngine.optimize``
+   at 9088², one scale, unbanded and on a space:2 mesh of ``[cuda:0,
+   cuda:0]`` (two bands of 4544 rows).  Under ``cudnn.deterministic`` one
+   step from the content init: every loss term within rtol 1e-5 and the
+   gradient within 1e-4 of its max (6h's bars, ``run_nin_space`` says
+   why).  Then, warmed up, 3 iterations of each: ms/iter, each run's peak
+   memory, the loss logs' relative difference and mean|Δ| (report only:
+   Adam's steps are sign(g) where g is float noise), K1's launches (6 a
+   capture, 6 an iteration unsharded, 12 on two bands) and inputs (among
+   phase 2's).  Then the img_img CLI with ``--model_file nin --gpu 0,0
+   --mesh space:2`` and the table's layers and optimiser at 256 and 512
+   (10 and 5 iterations): the PNGs, finite loss logs, every engine banded,
+   K1's launches and inputs.
+6m. The VQGAN decoder on "space": ``spatial.banded_decode`` of
+   imagenet_16384 at full width (seeded random weights, f32, TF32 off,
+   ``cudnn.deterministic``) on a space:2 mesh of ``[cuda:0, cuda:0]``
+   against the whole decode, at z of 16×16 (256² out, the clip_vqgan
+   CLI's default) and 64×64 (1024²): the output and the gradient of a
+   random projection with respect to z within 1e-4 of their max
+   (``run_vqgan_space`` says why), ms of the forward and of forward plus
+   gradient, and each one's peak memory; K1 and K2 0.
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -244,6 +270,17 @@ STYLE_LAYERS = 5
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# VGG-19's style layers: (C, name)
+VGG_STYLE = ((64, "relu1_1"), (128, "relu2_1"), (256, "relu3_1"), (512, "relu4_1"), (512, "relu5_1"))
+
+
+def vgg19_spec():
+    """VGG-19's spec (``spatial.level_heights`` reads its layers)."""
+    from maua_style_tpu_torch.models import select_model
+
+    return select_model("vgg19")
 
 
 def hw_style_shapes(h: int, w: int) -> list[tuple[int, int]]:
@@ -1039,9 +1076,11 @@ def band_style_shapes(h: int, w: int, bands: int) -> set[tuple[int, int]]:
     from maua_style_tpu_torch.parallel import spatial
 
     heights = spatial.band_rows(h, bands, 16)
+    spec = vgg19_spec()
     out = set()
-    for c, stride in zip((64, 128, 256, 512, 512), (1, 2, 4, 8, 16)):
-        out |= {(c, hb * (w // stride)) for hb in spatial.level_heights(heights, stride)}
+    for c, layer in VGG_STYLE:
+        width = spatial.level_heights([w], spec, layer)[0]
+        out |= {(c, hb * width) for hb in spatial.level_heights(heights, spec, layer)}
     return out
 
 
@@ -1592,10 +1631,12 @@ def off_diagonal_ms(hw, t_w: int, shares: int, bands: int) -> float:
     frames = [per + (i < extra) for i in range(shares)]
     heights = spatial.band_rows(hw[0], bands, 16) if bands > 1 else [hw[0]]
     gen = torch.Generator(device="cuda").manual_seed(9)
+    spec = vgg19_spec()
     total = 0.0
-    for c, stride in zip((64, 128, 256, 512, 512), (1, 2, 4, 8, 16)):
-        for hb in spatial.level_heights(heights, stride):
-            n = hb * (hw[1] // stride)
+    for c, layer in VGG_STYLE:
+        width = spatial.level_heights([hw[1]], spec, layer)[0]
+        for hb in spatial.level_heights(heights, spec, layer):
+            n = hb * width
             for i in range(shares):
                 for k in range(i + 1, shares):
                     a = torch.randn((frames[i] * c, n), device="cuda", generator=gen).requires_grad_(True)
@@ -3281,6 +3322,299 @@ def run_space(results: dict) -> dict[str, int]:
     return counts2
 
 
+# phase 6l: configs/scaling-img.json's first NIN mesh row ("9088": NIN, these
+# layers, Adam, space:2) at its size, one scale, one card standing in for
+# two; then the CLI with --model_file nin --mesh space:2 over a short pyramid
+NIN_SIDE, NIN_BANDS, NIN_ITERS = 9088, 2, 3
+NIN_STYLE = (("relu1", 96), ("relu3", 96), ("relu5", 256), ("relu7", 384), ("relu9", 384), ("relu11", 1024))
+NIN_CONTENT = "relu8"
+NIN_CLI_SIZES, NIN_CLI_ITERS = (256, 512), (10, 5)
+# phase 6m: the imagenet_16384 decoder's z sides (256² and 1024² out)
+VQ_Z_SIDES = (16, 64)
+
+
+def nin_spec():
+    """NIN up to the scaling table's deepest layer (relu11)."""
+    from maua_style_tpu_torch.models import select_model, truncate_spec
+
+    return truncate_spec(select_model("nin"), [l for l, _ in NIN_STYLE] + [NIN_CONTENT])
+
+
+def nin_gram_shapes(side: int, bands: int) -> list[tuple[int, int, int]]:
+    """(1, C, N) of NIN's style layers for a side² image cut into ``bands``
+    row bands (``spatial.band_rows`` and ``level_heights``: ceil-mode pools,
+    the last band the whole image's rest; one band: the whole image's)."""
+    from maua_style_tpu_torch.parallel import spatial
+
+    spec = nin_spec()
+    heights = spatial.band_rows(side, bands, spatial.band_alignment(spec), spec) if bands > 1 else [side]
+    out = []
+    for layer, c in NIN_STYLE:
+        width = spatial.level_heights([side], spec, layer)[0]
+        out += [(1, c, h * width) for h in spatial.level_heights(heights, spec, layer)]
+    return out
+
+
+def nin_run_gram_shapes() -> list[tuple[int, int, int]]:
+    """K1's inputs on phase 6l, in order and unique: at 9088² whole (the
+    style capture, the unsharded run) and banded, then the CLI's 256² and
+    512² (square: the content is 1024², the style scaled to its area)
+    whole and banded."""
+    return list(dict.fromkeys(s for side in (NIN_SIDE, *NIN_CLI_SIZES) for bands in (1, NIN_BANDS)
+                              for s in nin_gram_shapes(side, bands)))
+
+
+def check_nin_gram(results: dict) -> dict:
+    """K1 at every input of phase 6l, f32, with phase 2's bars and times."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for shape in nin_run_gram_shapes():
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), "at_9088": shape in nin_gram_shapes(NIN_SIDE, 1) + nin_gram_shapes(NIN_SIDE, 2),
+               **measure_gram(f)}
+        rows.append(row)
+        print("nin gram", json.dumps(row))
+        del f
+    results["gram_nin"] = rows
+    big = [r for r in rows if r["at_9088"]]
+
+    def total(rs, key):
+        return sum(r[key] for r in rs)
+
+    return {"shapes": len(rows), "ms": total(rows, "kernel_ms"), "plain_ms": total(rows, "plain_ms"),
+            "library_ms": total(rows, "library_ms"), "bound_ms": total(rows, "bound_ms"),
+            "ms_9088": total(big, "kernel_ms"), "plain_ms_9088": total(big, "plain_ms"),
+            "library_ms_9088": total(big, "library_ms"), "bound_ms_9088": total(big, "bound_ms"),
+            "slower_than_library": [r["shape"] for r in rows if r["kernel_ms"] >= r["library_ms"]],
+            "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows)}
+
+
+def run_nin_space(results: dict) -> dict[str, dict]:
+    """NIN on space:2 (configs/scaling-img.json's "9088" row), one card
+    standing in for two: ``StyleEngine.optimize`` at 9088², one scale, with
+    the table's layers and Adam (lr 1), seeded random weights, f32, TF32
+    off, unbanded and on a space:2 mesh of ``[cuda:0, cuda:0]``:
+
+    - under ``cudnn.deterministic``, one step from the content init: every
+      loss term within rtol 1e-5 and the gradient within 1e-4 of its max,
+      6h's bars.  The bands sum each Gram (K1 per band, 3xTF32, f32
+      accumulation) and each convolution in another order than the whole
+      image: at 1024² K1 lies 5.4e-7 from an f64 Gram (phase 2), and its
+      error grows at most as √N, to ≈ 1.3e-6 at relu1's 5.15M positions,
+      ten times under 1e-5; the gradient's bar is 6h's for the same sums;
+    - warmed up, 3 iterations of each in turn: ms/iter, each run's peak
+      memory, the loss logs' relative difference and mean|Δ| (report only:
+      Adam's sign(g) steps turn float noise into whole steps, ROADMAP);
+      K1's launches (6 a style capture; 6 an iteration unsharded, 12 on
+      two bands) and inputs (among phase 2's, ``check_nin_gram``).
+
+    Then the img_img CLI with ``--model_file nin --gpu 0,0 --mesh space:2``,
+    the table's layers and Adam at 256 and 512 (10 and 5 iterations): the
+    PNGs, finite loss logs, every engine NIN on two bands, K1's launches
+    (6 a scale's capture, 12 an iteration) and inputs.  Returns the
+    launches of the space:2 run and of the CLI."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw, to_nhwc
+    from maua_style_tpu_torch.losses import LossConfig
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.resize import resize_bilinear
+    from maua_style_tpu_torch.parallel import build_mesh
+    from maua_style_tpu_torch.pipelines import img_img as img_img_module
+
+    run_dir = os.path.join(OUT, "nin_space")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    dev = torch.device("cuda", 0)
+    # the main path's images resized to the table's size on the card (host arrays of 1 GB each)
+    content, style_img = (to_nhwc(resize_bilinear(to_nchw(mio.preprocess(p), dev), size=(NIN_SIDE, NIN_SIDE)))
+                          for p in (c_path, s_path))
+    spec = select_model("nin")
+    params = init_params(spec, seed=0)
+    layers = [l for l, _ in NIN_STYLE]
+    cfg = LossConfig(content_layers=(NIN_CONTENT,), style_layers=tuple(layers))
+    mesh = build_mesh([dev] * NIN_BANDS, [("space", NIN_BANDS)])
+    chunks = []
+
+    def engine_on(m):
+        return StyleEngine(spec, params, cfg, optimizer="adam", learning_rate=1.0, precision="highest", device=dev,
+                           mesh=m)
+
+    def timed_run(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) * 1e3 / a[5])
+        return out
+
+    def run(m, iters):
+        engine = engine_on(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        chunks.clear()
+        with patched((StyleEngine, "_run", timed_run)):
+            reset_counts()
+            out = engine.optimize(content, [style_img], content, iters)
+            counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        return out, engine.last_loss_log, counts, chunks[-1], peak
+
+    seen: set = set()
+    torch.backends.cudnn.deterministic = True
+    try:
+        one, two = engine_on(None), engine_on(mesh)
+        style_t = one.style_targets([style_img], [1.0])
+        step = step_apart(to_nchw(content, dev), one, {"content": one.content_targets(content), "style": style_t},
+                          two, {"content": two.content_targets(content), "style": style_t})
+        del one, two, style_t
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"nin_space: one step at {NIN_SIDE}² on {NIN_BANDS} bands against unsharded", json.dumps(step))
+    run(None, 1), run(mesh, 1)  # warm-up: cuDNN's algorithms for both shapes
+    p0, log0, counts0, ms0, peak0 = run(None, NIN_ITERS)
+    with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+        p2, log2, counts2, ms2, peak2 = run(mesh, NIN_ITERS)
+    total0, total2 = log0.sum(axis=1), log2.sum(axis=1)
+    summary = {"one_step": step, "side": NIN_SIDE, "bands": NIN_BANDS, "iters": NIN_ITERS,
+               "unsharded": {"ms_per_iter": ms0, "peak_bytes": peak0, "launches": counts0},
+               "space2": {"ms_per_iter": ms2, "peak_bytes": peak2, "launches": counts2},
+               "log_rtol_by_iteration": (np.abs(total2 - total0) / np.abs(total0)).tolist(),
+               "mean_abs_rel_pastiche": float(np.abs(p2 - p0).mean() / np.abs(p0).mean()),
+               "finite": bool(np.isfinite(p2).all() and np.isfinite(log2).all() and np.isfinite(log0).all())}
+    del p0, p2
+    print(f"nin_space: {NIN_SIDE}², Adam from the content init, {NIN_ITERS} iterations each, unsharded and on "
+          f"{NIN_BANDS} bands of one card:", json.dumps({k: v for k, v in summary.items() if k != "one_step"}))
+
+    engines = []
+
+    def recorded(fn, args, current_size=None):
+        engines.append(fn(args, current_size))
+        return engines[-1]
+
+    cli_dir = os.path.join(run_dir, "cli")
+    argv = ["--content", c_path, "--style", s_path, "--output_dir", cli_dir, "--model_file", "nin",
+            "--style_layers", ",".join(layers), "--content_layers", NIN_CONTENT, "--optimizer", "adam",
+            "--image_sizes", ",".join(map(str, NIN_CLI_SIZES)), "--num_iters", ",".join(map(str, NIN_CLI_ITERS)),
+            "--gpu", "0,0", "--mesh", f"space:{NIN_BANDS}", "--precision", "highest", "--allow_random_weights",
+            "--seed", "0", "--scaling_args", os.path.join(run_dir, "none.json")]
+    with patched((img_img_module, "build_engine", recorded), (G._GramFn, "apply", gram_inputs_into(seen))):
+        reset_counts()
+        t0 = time.perf_counter()
+        style.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_counts = read_counts()
+    pngs = [os.path.join(cli_dir, f"content_style_{size}.png") for size in NIN_CLI_SIZES]
+    summary["cli"] = {"wall_s": cli_s, "launches": cli_counts, "pngs": [os.path.exists(p) for p in pngs],
+                      "banded": [e.band_devices == [dev] * NIN_BANDS and e.spec.arch == "nin" for e in engines],
+                      "finite": all(np.isfinite(e.last_loss_log).all() for e in engines)}
+    print("nin_space: the img_img CLI with --model_file nin --mesh space:2 at", NIN_CLI_SIZES, json.dumps(summary["cli"]))
+    results["nin_space"] = summary
+    shutil.rmtree(run_dir)
+    want0 = {"gram": len(NIN_STYLE) * (NIN_ITERS + 1), "correlation": 0}
+    want2 = {"gram": len(NIN_STYLE) * (NIN_BANDS * NIN_ITERS + 1), "correlation": 0}
+    want_cli = {"gram": sum(len(NIN_STYLE) * (NIN_BANDS * it + 1) for it in NIN_CLI_ITERS), "correlation": 0}
+    if counts0 != want0 or counts2 != want2 or cli_counts != want_cli:
+        fail(f"nin_space launches: unsharded {counts0} (expected {want0}), space:2 {counts2} (expected {want2}), "
+             f"the CLI {cli_counts} (expected {want_cli})")
+    if seen - set(nin_run_gram_shapes()):
+        fail(f"nin_space's Gram inputs {sorted(seen - set(nin_run_gram_shapes()))} not among phase 2's")
+    if not (step["loss_rtol"] <= 1e-5 and step["grad_rel"] <= 1e-4):
+        fail(f"nin_space: one step on two bands against unsharded: {step} past rtol 1e-5 / 1e-4")
+    if not summary["finite"] or not summary["cli"]["finite"]:
+        fail("nin_space: a pastiche or a loss log is not finite")
+    if not (all(summary["cli"]["pngs"]) and len(engines) == len(NIN_CLI_SIZES) and all(summary["cli"]["banded"])):
+        fail(f"nin_space: the CLI's artifacts or engines are off: {summary['cli']}")
+    return {"nin_space2": counts2, "nin_cli": cli_counts}
+
+
+def run_vqgan_space(results: dict) -> dict[str, int]:
+    """``spatial.banded_decode`` of imagenet_16384 at full width (seeded
+    random weights, f32, TF32 off, ``cudnn.deterministic``) on a space:2
+    mesh of ``[cuda:0, cuda:0]`` against the whole decode, at z of 16×16
+    (256² out) and 64×64 (1024² out): the output and the gradient of a
+    random projection with respect to z within 1e-4 of their max.  The
+    bands' GroupNorm statistics, attention scores and convolutions sum in
+    another order, and cuDNN picks its algorithms per shape, so the bands'
+    convolutions are other kernels than the whole's: 1e-4 is the bar this
+    repository holds the decoder to across implementations (phase 6c's
+    card against CPU, tests/test_torch_vqgan.py's port against JAX).
+    Prints the max|Δ|s, ms of the forward and of forward plus gradient
+    (CUDA events, median of 5) and each one's peak memory; K1 and K2 0."""
+    import torch
+
+    from maua_style_tpu_torch.engine.optimize import apply_precision
+    from maua_style_tpu_torch.models import vqgan as vq
+    from maua_style_tpu_torch.parallel import build_mesh, spatial
+
+    apply_precision("highest")
+    dev = torch.device("cuda", 0)
+    model = vq.init_vqgan(vq.PRESETS["imagenet_16384"], seed=0).to(dev).eval().requires_grad_(False)
+    mesh = build_mesh([dev] * 2, [("space", 2)])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    reset_counts()
+    torch.backends.cudnn.deterministic = True
+    try:
+        for side in VQ_Z_SIDES:
+            z = torch.randn((1, model.cfg.embed_dim, side, side), device=dev, generator=gen)
+            proj = None
+            got = {}
+            for key, m in (("whole", None), ("space2", mesh)):
+                zz = z.clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out = spatial.banded_decode(model, zz, m)
+                if proj is None:
+                    proj = torch.randn(out.shape, device=dev, generator=gen)
+                (g,) = torch.autograd.grad((out * proj).sum(), zz)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+
+                def forward(zz=zz, m=m):
+                    with torch.no_grad():
+                        spatial.banded_decode(model, zz, m)
+
+                def backward(zz=zz, m=m):
+                    torch.autograd.grad((spatial.banded_decode(model, zz, m) * proj).sum(), zz)
+
+                got[key] = {"out": out.detach(), "grad": g, "peak_bytes": peak,
+                            "forward_ms": time_ms(forward, reps=5, warmup=1),
+                            "grad_ms": time_ms(backward, reps=5, warmup=1)}
+            w, b = got["whole"], got["space2"]
+            row = {"z": [side, side], "out": list(w["out"].shape),
+                   "out_rel": float((b["out"] - w["out"]).abs().max() / w["out"].abs().max()),
+                   "grad_rel": float((b["grad"] - w["grad"]).abs().max() / w["grad"].abs().max()),
+                   "finite": bool(torch.isfinite(b["out"]).all() and torch.isfinite(b["grad"]).all()),
+                   **{f"{k}_{m}": got[k][m] for k in got for m in ("forward_ms", "grad_ms", "peak_bytes")}}
+            rows.append(row)
+            del got, w, b, z, proj
+            print("vqgan_space: imagenet_16384 decode on space:2 against whole", json.dumps(row))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    counts = read_counts()
+    results["vqgan_space"] = rows
+    del model
+    for row in rows:
+        if not (row["finite"] and row["out_rel"] <= 1e-4 and row["grad_rel"] <= 1e-4):
+            fail(f"vqgan_space: the banded decode at z {row['z']} against whole: {row}")
+    if counts != {"gram": 0, "correlation": 0}:
+        fail(f"vqgan_space: launches {counts}, expected none")
+    return counts
+
+
 def run_space_two_cards(run_dir: str, c_path: str, s_path: str) -> dict:
     """The style CLI with ``--gpu 0,1`` at 2048² (5 L-BFGS iterations): each
     card's peak memory."""
@@ -3598,7 +3932,7 @@ def main() -> int:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
         for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
                   "clip_vqgan_rn50", "clip_video_style", "similarity", "fidelity", "space", "frames", "tuner_scale",
-                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames",
+                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames", "nin_space",
                   *(f"img_vid_{key}" for key, _, _ in IV_MESH)):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
@@ -3621,6 +3955,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram["vid_img_shapes"] = check_vid_gram(results)
     gram["mesh_shapes"] = check_mesh_gram(results)
     gram["img_vid_mesh_shapes"] = check_img_vid_mesh_gram(results)
+    gram["nin_shapes"] = check_nin_gram(results)
     corr = check_correlation(results)
     img = run_main_path(results)
     check_small_against_cpu(results)
@@ -3657,6 +3992,8 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     frames_counts = run_frames(results)["frames2"]
     vid_mesh_counts = run_vid_mesh(results)
     img_vid_mesh_counts = run_img_vid_mesh(results)
+    nin_counts = run_nin_space(results)
+    vqgan_counts = run_vqgan_space(results)
     drive_flags(results)
     check_determinism(results)
     run_tuner(results)  # last: its probes take the card's memory to its limit
@@ -3665,7 +4002,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
              "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,
              "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts,
              "fidelity": fid_counts, "space": space_counts, "frames": frames_counts, **vid_mesh_counts,
-             **img_vid_mesh_counts}
+             **img_vid_mesh_counts, **nin_counts, "vqgan_space2": vqgan_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

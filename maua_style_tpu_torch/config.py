@@ -291,18 +291,17 @@ def parse_mesh(mesh: str | None) -> list[tuple[str, int]]:
     return axes
 
 
-def single_device(args, what: str, item: str) -> torch.device:
-    """The one device of a path that has no mesh support yet: the first of
+def single_device(args, what: str, why: str) -> torch.device:
+    """The one device of a path that runs on one: the first of
     ``args.devices`` (chosen here by ``setup_devices`` when the caller's
     parser did not); a mesh over more than one device raises
-    ``NotImplementedError`` naming the ROADMAP item."""
+    ``NotImplementedError`` saying ``why`` (a ROADMAP item, or the JAX
+    CLI's own single device)."""
     if getattr(args, "devices", None) is None:
         args.devices, args.mesh_shape = setup_devices(args)
     n = math.prod(s for _, s in args.mesh_shape)
     if n > 1:
-        raise NotImplementedError(
-            f"{what} runs on one device; a mesh over {n} devices ({args.mesh_shape}) is ROADMAP item {item}"
-        )
+        raise NotImplementedError(f"{what} runs on one device; a mesh over {n} devices ({args.mesh_shape}): {why}")
     return args.devices[0]
 
 

@@ -30,10 +30,11 @@ program it loops over ``optimize_frame`` on the host.
 
 A mesh (``mesh=``, ``parallel/mesh.py``): on a "space" axis a pastiche
 (img_img's, a vid_img frame's, or a stack of frames) is cut into row
-bands, one per device (``parallel/spatial.py``), and every iteration runs
-the bands' forward with halo rows, the losses from per-band sums
-(``losses.evaluate_banded_losses``, K1 per band over the whole stack) and
-the optimiser band by band; a frame's set-up (preprocess, histogram
+bands, one per device (``parallel/spatial.py``; any model of the
+registry, NIN's strided convolution and overlapping pools included), and
+every iteration runs the bands' forward with halo rows, the losses from
+per-band sums (``losses.evaluate_banded_losses``, K1 per band over the
+whole stack) and the optimiser band by band; a frame's set-up (preprocess, histogram
 match, the warp of the previous frame, the init) runs whole on the first
 device and is then split, and the result, the ``save_iter`` snapshots and
 the run-state checkpoints are gathered to the single-device layout.  On a
@@ -42,8 +43,8 @@ of the mesh (``parallel.mesh_rows``: one device, or with "space" too a
 row of bands), each row with its own copy of the extractor and the style
 targets and its own stacked step, the host issuing every row's iteration
 in turn.  The per-frame and chained passes run on the first row, as JAX's
-frames-stripped programs do.  Other paths on a mesh of several devices
-raise ``NotImplementedError`` naming their ROADMAP item.
+frames-stripped programs do.  The "tensor" axis raises
+``NotImplementedError`` naming its ROADMAP item.
 
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
 circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
@@ -161,7 +162,8 @@ class StyleEngine:
         self.loss_cfg = loss_cfg
         self.spec = truncate_spec(spec, loss_cfg.all_layers)
         # "space": the bands' devices (the first row's with a "frames" axis
-        # too) and the rows a band boundary is a multiple of
+        # too) and the rows a band boundary is a multiple of (the product of
+        # the spec's strides in H, ``spatial.band_geometry``)
         self.band_devices = list(mesh_rows(mesh)[0]) if space_axis else None
         self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
         self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
@@ -538,7 +540,7 @@ class StyleEngine:
         if not self.band_devices:
             return _same, _same
         _, c, h, w = shape
-        heights = spatial.band_rows(h, len(self.band_devices), self.band_align)
+        heights = spatial.band_rows(h, len(self.band_devices), self.band_align, self.spec)
         return (lambda x: spatial.split_rows(x, heights, self.band_devices, c, w),
                 lambda x: spatial.gather_rows(x, heights, self.device, c, w))
 
@@ -648,7 +650,7 @@ class StyleEngine:
         h, w = (int(v) for v in hw)
         shares = [(row, part) for row, part in window_shares(self.sharding, t_w) if part.stop > part.start]
         bands = len(shares[0][0])
-        heights = spatial.band_rows(h, bands, self.band_align) if bands > 1 else [h]
+        heights = spatial.band_rows(h, bands, self.band_align, self.spec) if bands > 1 else [h]
         return spatial.WindowLayout(shares, heights, 3, w)
 
     def _share_targets(self, targets: dict, layout) -> list[dict]:

@@ -80,7 +80,7 @@ def init_params(spec: ExtractorSpec, seed: int = 0) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _pool_out_len(length: int, kernel: int, stride: int, ceil_mode: bool) -> int:
+def pool_out_len(length: int, kernel: int, stride: int, ceil_mode: bool) -> int:
     if ceil_mode:
         out = -(-(length - kernel) // stride) + 1
         # torch drops a trailing window that would start beyond the input
@@ -90,14 +90,16 @@ def _pool_out_len(length: int, kernel: int, stride: int, ceil_mode: bool) -> int
     return (length - kernel) // stride + 1
 
 
-def _pool(x: torch.Tensor, layer: Layer) -> torch.Tensor:
+def pool_layer(x: torch.Tensor, layer: Layer) -> torch.Tensor:
+    """A pool layer of ``x`` with the JAX package's edge semantics (the
+    module docstring)."""
     k, s = layer.kernel, layer.stride
     is_max = layer.kind == "maxpool"
     if not layer.ceil_mode:
         return F.max_pool2d(x, k, s) if is_max else F.avg_pool2d(x, k, s)
     h, w = x.shape[2], x.shape[3]
-    oh = _pool_out_len(h, k[0], s[0], True)
-    ow = _pool_out_len(w, k[1], s[1], True)
+    oh = pool_out_len(h, k[0], s[0], True)
+    ow = pool_out_len(w, k[1], s[1], True)
     pad = (0, max((ow - 1) * s[1] + k[1] - w, 0), 0, max((oh - 1) * s[0] + k[0] - h, 0))
     if is_max:
         return F.max_pool2d(F.pad(x, pad, value=float("-inf")), k, s)
@@ -123,18 +125,22 @@ class Extractor(nn.Module):
             self.load_state_dict({k: v for k, v in state_dict.items() if k.split(".")[0] in own})
         self.requires_grad_(False)
 
-    def forward(self, x, wanted: Iterable[str] = (), conv=None) -> dict:
+    def forward(self, x, wanted: Iterable[str] = (), conv=None, pool=None) -> dict:
         """x: (B, C, H, W), or a list of row bands of one image
         (``parallel/spatial.py``).  Returns {name: activation} for
         ``wanted``, a list of band activations each for bands.  ``conv(layer,
-        xs)`` runs a convolution layer over the list ``xs`` (bands: with
-        their halo rows, ``spatial.banded_forward``); by default this
-        module's own convolution of each."""
+        xs)`` runs a convolution layer over the list ``xs`` and ``pool(layer,
+        xs)`` a pool layer (bands: with their halo rows,
+        ``spatial.banded_forward``); by default this module's own
+        convolution, and ``pool_layer``, of each."""
         banded = isinstance(x, (list, tuple))
         xs = list(x) if banded else [x]
         if conv is None:
             def conv(layer, xs):
                 return [self.get_submodule(layer.name)(x) for x in xs]
+        if pool is None:
+            def pool(layer, xs):
+                return [pool_layer(x, layer) for x in xs]
         remaining = set(wanted)
         acts: dict = {}
         for layer in self.spec.layers:
@@ -143,7 +149,7 @@ class Extractor(nn.Module):
             elif layer.kind == "relu":
                 xs = [torch.relu(x) for x in xs]
             elif layer.kind in ("maxpool", "avgpool"):
-                xs = [_pool(x, layer) for x in xs]
+                xs = pool(layer, xs)
             elif layer.kind == "drop":
                 pass  # inference-mode dropout is identity
             elif layer.kind == "softmax":
@@ -159,4 +165,4 @@ class Extractor(nn.Module):
             raise ValueError(f"layers not found in {self.spec.arch}: {sorted(remaining)}")
         return acts
 
-__all__ = ["Layer", "ExtractorSpec", "Extractor", "init_params", "truncate_spec"]
+__all__ = ["Layer", "ExtractorSpec", "Extractor", "init_params", "truncate_spec", "pool_layer", "pool_out_len"]

@@ -19,10 +19,12 @@ Inference only: the engine optimises the latent z, never the weights.
 
 from __future__ import annotations
 
+import functools
 import glob
 import math
 import os
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -82,6 +84,50 @@ def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, padding=k // 2)
 
 
+class Hooks(NamedTuple):
+    """How a layer acts on a list of row bands of one image: ``conv(m, xs)``
+    runs the convolution ``m`` and ``norm(m, xs)`` the GroupNorm ``m`` over
+    the list.  ``EACH``, the default, is each module's own call on each
+    tensor (one band: the whole image); ``parallel/spatial.banded_decode``
+    passes hooks that read halo rows and reduce the statistics over the
+    bands."""
+
+    conv: Callable
+    norm: Callable
+
+
+def _each(m: nn.Module, xs: list) -> list:
+    return [m(x) for x in xs]
+
+
+EACH = Hooks(_each, _each)
+
+
+def _on_bands(forward):
+    """A layer's ``forward(self, xs, hooks)`` over a list of row bands,
+    also called with one tensor (and then returning one)."""
+
+    @functools.wraps(forward)
+    def call(self, x, hooks: Hooks | None = None):
+        if isinstance(x, (list, tuple)):
+            return forward(self, list(x), hooks or EACH)
+        return forward(self, [x], hooks or EACH)[0]
+
+    return call
+
+
+def _attend(qs: list, ks: list, vs: list) -> list:
+    """Single-head attention of (B, n_i, C) token bands: each band's queries
+    over every band's keys and values, gathered to its device; the softmax
+    is over all positions."""
+    out = []
+    for q in qs:
+        k = torch.cat([t.to(q.device) for t in ks], dim=1)
+        v = torch.cat([t.to(q.device) for t in vs], dim=1)
+        out.append(torch.softmax((q @ k.transpose(1, 2)) * (q.shape[2] ** -0.5), dim=-1) @ v)
+    return out
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
@@ -91,12 +137,13 @@ class ResnetBlock(nn.Module):
         self.conv2 = _conv(cout, cout, 3)
         self.nin_shortcut = _conv(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(swish(self.norm1(x)))
-        h = self.conv2(swish(self.norm2(h)))
+    @_on_bands
+    def forward(self, xs: list, hooks: Hooks) -> list:
+        h = hooks.conv(self.conv1, [swish(y) for y in hooks.norm(self.norm1, xs)])
+        h = hooks.conv(self.conv2, [swish(y) for y in hooks.norm(self.norm2, h)])
         if self.nin_shortcut is not None:
-            x = self.nin_shortcut(x)
-        return x + h
+            xs = hooks.conv(self.nin_shortcut, xs)
+        return [x + y for x, y in zip(xs, h)]
 
 
 class AttnBlock(nn.Module):
@@ -105,13 +152,16 @@ class AttnBlock(nn.Module):
         self.norm = Normalize(c)
         self.q, self.k, self.v, self.proj_out = (_conv(c, c, 1) for _ in range(4))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        hn = self.norm(x)
-        q, k, v = (m(hn).reshape(b, c, h * w).transpose(1, 2) for m in (self.q, self.k, self.v))  # (B, HW, C)
-        wts = torch.softmax((q @ k.transpose(1, 2)) * (c ** -0.5), dim=-1)
-        out = (wts @ v).transpose(1, 2).reshape(b, c, h, w)
-        return x + self.proj_out(out)
+    @_on_bands
+    def forward(self, xs: list, hooks: Hooks) -> list:
+        hn = hooks.norm(self.norm, xs)
+
+        def tokens(m):  # (B, h_i·W, C)
+            return [y.flatten(2).transpose(1, 2) for y in hooks.conv(m, hn)]
+
+        out = _attend(tokens(self.q), tokens(self.k), tokens(self.v))
+        out = [o.transpose(1, 2).reshape(x.shape) for o, x in zip(out, xs)]
+        return [x + y for x, y in zip(xs, hooks.conv(self.proj_out, out))]
 
 
 class Downsample(nn.Module):
@@ -128,8 +178,9 @@ class Upsample(nn.Module):
         super().__init__()
         self.conv = _conv(c, c, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+    @_on_bands
+    def forward(self, xs: list, hooks: Hooks) -> list:
+        return hooks.conv(self.conv, [F.interpolate(x, scale_factor=2.0, mode="nearest") for x in xs])
 
 
 class _Level(nn.Module):
@@ -146,11 +197,12 @@ class _Level(nn.Module):
                 self.attn.append(AttnBlock(cout))
             cin = cout
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    @_on_bands
+    def forward(self, h: list, hooks: Hooks) -> list:
         for i, blk in enumerate(self.block):
-            h = blk(h)
+            h = blk(h, hooks)
             if len(self.attn):
-                h = self.attn[i](h)
+                h = self.attn[i](h, hooks)
         return h
 
 
@@ -161,8 +213,9 @@ class _Mid(nn.Module):
         self.attn_1 = AttnBlock(c)
         self.block_2 = ResnetBlock(c, c)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return self.block_2(self.attn_1(self.block_1(h)))
+    @_on_bands
+    def forward(self, h: list, hooks: Hooks) -> list:
+        return self.block_2(self.attn_1(self.block_1(h, hooks), hooks), hooks)
 
 
 class Encoder(nn.Module):
@@ -216,13 +269,14 @@ class Decoder(nn.Module):
         self.norm_out = Normalize(cin)
         self.conv_out = _conv(cin, cfg.out_ch, 3)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid(self.conv_in(z))
+    @_on_bands
+    def forward(self, zs: list, hooks: Hooks) -> list:
+        h = self.mid(hooks.conv(self.conv_in, zs), hooks)
         for level in reversed(self.up):
-            h = level(h)
+            h = level(h, hooks)
             if hasattr(level, "upsample"):
-                h = level.upsample(h)
-        return self.conv_out(swish(self.norm_out(h)))
+                h = level.upsample(h, hooks)
+        return hooks.conv(self.conv_out, [swish(y) for y in hooks.norm(self.norm_out, h)])
 
 
 class Quantize(nn.Module):
@@ -252,8 +306,12 @@ class VQGAN(nn.Module):
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return self.quant_conv(self.encoder(x))
 
-    def decode(self, z_q: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z_q))
+    @_on_bands
+    def decode(self, zs: list, hooks: Hooks) -> list:
+        """(B, D, h, w) quantised latents -> (B, 3, H, W); a list of row
+        bands of them, with ``hooks`` that join the bands
+        (``parallel/spatial.banded_decode``), -> the image's bands."""
+        return self.decoder(hooks.conv(self.post_quant_conv, zs), hooks)
 
     def code_indices(self, z: torch.Tensor) -> torch.Tensor:
         """(B, D, h, w) -> (B, h, w) nearest codes by |z|² + |c|² − 2 z·c,
@@ -392,6 +450,8 @@ __all__ = [
     "VQGAN",
     "VQGANConfig",
     "PRESETS",
+    "Hooks",
+    "EACH",
     "init_vqgan",
     "vqgan_params_from_jax",
     "convert_vqgan_state_dict",

@@ -3,21 +3,31 @@ run through the feature net band by band (JAX shards H under GSPMD,
 parallel/mesh.py's policy; PyTorch has no such partitioner, so the halo
 exchange is written out here).
 
+- **Geometry.** A convolution or pool of kernel k, stride s and top pad p
+  (``band_geometry``) maps the input rows [s·a, s·b) that a band owns to
+  the output rows [a, b), reading p rows of the band above and k − s − p
+  of the band below: 1 and 1 for VGG's 3x3/1 convolutions, none for its
+  2x2/2 pools; 0 and 7 for NIN's 11x11/4 conv1, 2 and 2 for its 5x5
+  conv2, 0 and 1 for its 3x3/2 ceil-mode pools.
 - **Bands.** A (1, C, H, W) image is cut at rows that are multiples of the
-  product of the pool strides up to the deepest wanted layer (16 for
-  VGG-19 up to relu5_1), so every 2x2/2 pool window lies inside one band
-  and each band's rows stay a whole block at every depth.  The ragged
-  bottom that a floor-mode pool drops (``models/extractor._pool``) falls in
-  the last band, where the whole image drops it too.
-- **Halo exchange.** A 3x3/1 convolution reads one row across each band
-  boundary: ``halo_pad`` copies the neighbours' edge rows to this band's
-  device (forward) and sends their gradient back into those rows
-  (backward).  Zero padding stays at the image's true top and bottom.
-- **Which models.** Specs whose layers keep the boundaries aligned:
-  stride-1 convolutions padded (k - 1) / 2 in H, and floor-mode pools whose
-  kernel equals their stride: VGG-19, VGG-16 and the VGG-16 variants
-  (prune, sod, nyud, fcn32s).  Any other (NIN: an 11x11/4 convolution and
-  3x3/2 pools) raises ``NotImplementedError``.
+  product of the strides up to the deepest wanted layer
+  (``band_alignment``: 16 for VGG-19 up to relu5_1, 32 for NIN up to
+  relu11), so every inner band owns a whole block at every depth and
+  yields exactly as many rows as the whole image gives it.  The image's
+  edges are the whole image's: zero rows where a convolution pads, none
+  where it does not, and ``models/extractor.pool_layer``'s ceil-mode
+  windows and floor-mode crop at the bottom, which falls in the last band
+  (its rows, the whole image's rest, are what remains at each depth).
+  ``band_rows`` checks every band at every depth and moves a cut that
+  would empty the ragged last band.
+- **The VQGAN decoder** (``banded_decode``) runs on bands through the
+  hooks of ``models/vqgan.Hooks``: its 3x3 convolutions read a row of each
+  neighbour (``conv_bands``), its GroupNorms reduce their statistics over
+  the bands (``group_norm_bands``), and its attention gathers every band's
+  keys and values.
+- **Halo exchange.** ``halo_pad`` copies the neighbours' edge rows to this
+  band's device (forward) and sends their gradient back into those rows
+  (backward).
 
 The optimiser state of a banded pastiche is kept band by band (lists of
 tensors, ``engine/lbfgs.py``); ``split_rows`` and ``gather_rows`` move a
@@ -29,102 +39,266 @@ per share and band.
 
 from __future__ import annotations
 
+import copy
+import math
 from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..models.extractor import ExtractorSpec
+from ..models.extractor import ExtractorSpec, Layer, pool_layer, pool_out_len
+from ..models.vqgan import Hooks
+from .mesh import mesh_rows, sharding_for
 
-UNSUPPORTED = "ROADMAP item 18k"
+
+class BandStep(NamedTuple):
+    """A convolution or pool layer's rows (its H dimension)."""
+
+    layer: Layer
+    kernel: int
+    stride: int
+    pad: int  # zero rows at the image's top and bottom; pools pad none (``pool_layer``'s edges)
+
+    @property
+    def above(self) -> int:
+        """Rows read from the band above (zero rows at the image's top)."""
+        return self.pad
+
+    @property
+    def below(self) -> int:
+        """Rows read from the band below."""
+        return self.kernel - self.stride - self.pad
+
+    def rows_out(self, rows: int) -> int:
+        """The whole image's output rows for ``rows`` input rows."""
+        if self.layer.kind == "conv":
+            return (rows + 2 * self.pad - self.kernel) // self.stride + 1
+        return pool_out_len(rows, self.kernel, self.stride, self.layer.ceil_mode)
+
+
+def band_step(layer: Layer) -> BandStep:
+    """A conv or pool layer's ``BandStep``."""
+    pad = layer.pad[0] if layer.kind == "conv" else 0
+    return BandStep(layer, layer.kernel[0], layer.stride[0], pad)
+
+
+def band_geometry(spec: ExtractorSpec) -> list[BandStep]:
+    """The ``BandStep`` of each convolution and pool of a (truncated) spec."""
+    return [band_step(l) for l in spec.layers if l.kind in ("conv", "maxpool", "avgpool")]
 
 
 def band_alignment(spec: ExtractorSpec) -> int:
-    """The product of the pool strides in H of a (truncated) spec; raises
-    ``NotImplementedError`` where a layer would move a band boundary."""
-    align = 1
-    for layer in spec.layers:
-        if layer.kind == "conv":
-            k, s, pad = layer.kernel[0], layer.stride[0], layer.pad[0]
-            if s != 1 or k % 2 == 0 or pad != k // 2:
-                raise NotImplementedError(
-                    f"{spec.arch}'s {layer.name} ({k}x{layer.kernel[1]}/{s}, pad {pad}) moves band boundaries: "
-                    f"a 'space' mesh supports stride-1 'same' convolutions only ({UNSUPPORTED})"
-                )
-        elif layer.kind in ("maxpool", "avgpool"):
-            if layer.kernel != layer.stride or layer.ceil_mode:
-                raise NotImplementedError(
-                    f"{spec.arch}'s {layer.name} ({layer.kernel}/{layer.stride}) overlaps band boundaries: "
-                    f"a 'space' mesh supports pools whose kernel equals their stride ({UNSUPPORTED})"
-                )
-            align *= layer.stride[0]
-    return align
+    """The product of the strides in H of a (truncated) spec: the rows a band
+    boundary is a multiple of."""
+    return math.prod(st.stride for st in band_geometry(spec))
 
 
-def band_rows(height: int, bands: int, align: int) -> list[int]:
+def _levels(heights: Sequence[int], steps: Sequence[BandStep]):
+    """For each step: (the step, its input's band heights, its output's).
+    Inner bands yield rows / stride; the last band the whole image's rest."""
+    hs = list(heights)
+    for st in steps:
+        inner = [h // st.stride for h in hs[:-1]]
+        out = inner + [st.rows_out(sum(hs)) - sum(inner)]
+        yield st, hs, out
+        hs = out
+
+
+def _fits(heights: Sequence[int], steps: Sequence[BandStep]) -> bool:
+    """Every band keeps a row at every step, and holds the rows its
+    neighbours read from it."""
+    n = len(heights)
+    for st, hin, hout in _levels(heights, steps):
+        if min(hout) < 1:
+            return False
+        if any(hin[i] < st.below for i in range(1, n)) or any(hin[i] < st.above for i in range(n - 1)):
+            return False
+    return True
+
+
+def band_rows(height: int, bands: int, align: int, spec: ExtractorSpec | None = None) -> list[int]:
     """The bands' heights: boundaries at multiples of ``align`` nearest the
-    even split, every band at least ``align`` rows (one row at the deepest
-    pool), the ragged remainder in the last."""
+    even split, every band at least ``align`` rows, the ragged remainder in
+    the last.  With ``spec``, every band must keep a row and hold its
+    neighbours' halo at every layer (``_fits``); where the ragged last band
+    does not (NIN's empties at pool3 for some heights), its boundary moves
+    up a block at a time.  Raises ``ValueError`` where no cut does."""
     cuts = [0] + [round(i * height / bands / align) * align for i in range(1, bands)] + [height]
-    heights = [b - a for a, b in zip(cuts, cuts[1:])]
-    if min(heights) < align:
-        raise ValueError(f"{height} rows do not make {bands} bands of at least {align} rows")
-    return heights
+    steps = band_geometry(spec) if spec is not None else []
+    while True:
+        heights = [b - a for a, b in zip(cuts, cuts[1:])]
+        if min(heights) < align:
+            what = f" that each keep a row at every layer of {spec.arch}" if spec is not None else ""
+            raise ValueError(f"{height} rows do not make {bands} bands of at least {align} rows{what}")
+        if _fits(heights, steps):
+            return heights
+        cuts[-2] -= align  # one more block for the last band, pushing earlier cuts as needed
+        for i in range(len(cuts) - 2, 1, -1):
+            cuts[i - 1] = min(cuts[i - 1], cuts[i] - align)
+
+
+def level_heights(heights: Sequence[int], spec: ExtractorSpec, layer: str) -> list[int]:
+    """The bands' heights at ``layer``'s output for bands of ``heights``
+    input rows (``_levels``: each layer's rows, ceil-mode pools included)."""
+    names = [l.name for l in spec.layers]
+    steps = band_geometry(ExtractorSpec(spec.arch, spec.layers[: names.index(layer) + 1], spec.in_ch))
+    return [list(heights), *(out for _, _, out in _levels(heights, steps))][-1]
 
 
 class _HaloPad(torch.autograd.Function):
-    """(x, above, below) -> x with ``halo`` rows of each neighbour's edge
-    stacked on top and bottom (zeros where there is no neighbour), on x's
-    device.  The backward returns the interior's gradient to x and each
-    halo's gradient to its neighbour's edge rows, on the neighbour's
-    device."""
+    """(x, above, below) -> x with ``top`` rows of the band above and
+    ``bottom`` rows of the band below stacked on (zeros where there is no
+    neighbour), on x's device.  The backward returns the interior's
+    gradient to x and each halo's gradient to its neighbour's edge rows, on
+    the neighbour's device."""
 
     @staticmethod
-    def forward(ctx, x, above, below, halo: int):
-        ctx.halo = halo
-        ctx.neighbours = (None if above is None else (above.shape, above.device),
-                          None if below is None else (below.shape, below.device))
-        zeros = x.new_zeros((*x.shape[:2], halo, x.shape[3]))
-        top = zeros if above is None else above[:, :, -halo:].to(x.device)
-        bottom = zeros if below is None else below[:, :, :halo].to(x.device)
-        return torch.cat([top, x, bottom], dim=2)
+    def forward(ctx, x, above, below, top: int, bottom: int):
+        ctx.rows = (top, bottom)
+        # each neighbour's (shape, device, the edge rows this band reads)
+        ctx.neighbours = (None if above is None or not top else (above.shape, above.device,
+                                                                 slice(above.shape[2] - top, None)),
+                          None if below is None or not bottom else (below.shape, below.device, slice(0, bottom)))
+
+        def zeros(n):
+            return x.new_zeros((*x.shape[:2], n, x.shape[3]))
+
+        up = zeros(top) if above is None else above[:, :, above.shape[2] - top :].to(x.device)
+        down = zeros(bottom) if below is None else below[:, :, :bottom].to(x.device)
+        return torch.cat([up, x, down], dim=2)
 
     @staticmethod
     def backward(ctx, g):
-        h = ctx.halo
-        grads = [g[:, :, h:-h]]
-        for (nb, rows, edge) in ((ctx.neighbours[0], g[:, :, :h], slice(-h, None)),
-                                 (ctx.neighbours[1], g[:, :, -h:], slice(None, h))):
+        top, bottom = ctx.rows
+        h = g.shape[2]
+        grads = [g[:, :, top : h - bottom]]
+        for nb, rows in ((ctx.neighbours[0], g[:, :, :top]), (ctx.neighbours[1], g[:, :, h - bottom :])):
             if nb is None:
                 grads.append(None)
                 continue
-            shape, device = nb
+            shape, device, edge = nb
             gn = torch.zeros(shape, dtype=g.dtype, device=device)
             gn[:, :, edge] = rows.to(device)
             grads.append(gn)
-        return (*grads, None)
+        return (*grads, None, None)
 
 
-def halo_pad(x: torch.Tensor, above: torch.Tensor | None, below: torch.Tensor | None, halo: int) -> torch.Tensor:
-    """Band ``x`` with ``halo`` rows of its neighbours above and below
-    (None: the image's edge, zero rows)."""
-    return _HaloPad.apply(x, above, below, halo)
+def halo_pad(x: torch.Tensor, above: torch.Tensor | None, below: torch.Tensor | None, top: int,
+             bottom: int) -> torch.Tensor:
+    """Band ``x`` with ``top`` rows of its neighbour above and ``bottom``
+    of its neighbour below (None: the image's edge, zero rows)."""
+    return _HaloPad.apply(x, above, below, top, bottom)
+
+
+def with_halo(xs: Sequence[torch.Tensor], above: int, below: int, edge: int) -> list[torch.Tensor]:
+    """Each band of ``xs`` with the rows a layer reads across its
+    boundaries: ``above`` rows on top (zeros at the image's top), ``below``
+    rows of the band below, or at the image's bottom ``edge`` zero rows
+    (the layer's own padding)."""
+    n = len(xs)
+    if not (above or below or edge):
+        return list(xs)
+    return [halo_pad(x, xs[i - 1] if i else None, xs[i + 1] if i + 1 < n else None, above,
+                     below if i + 1 < n else edge) for i, x in enumerate(xs)]
+
+
+def conv_bands(convs: Sequence, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """A convolution over bands: ``convs[i]`` (the layer's ``nn.Conv2d`` on
+    band i's device) runs band i with the rows it reads across its
+    boundaries (``with_halo``; its own padding at the image's edges) and
+    pads only W."""
+    c = convs[0]
+    k, s, p = c.kernel_size[0], c.stride[0], c.padding[0]
+    return [F.conv2d(x, m.weight, m.bias, m.stride, (0, m.padding[1]))
+            for x, m in zip(with_halo(xs, p, k - s - p, p), convs)]
 
 
 def banded_forward(extractors: Sequence, bands: Sequence[torch.Tensor], wanted: Sequence[str]) -> dict[str, list]:
     """The feature net over bands: ``extractors[i]`` (an ``Extractor`` on
     band i's device; the same module where devices repeat) runs band i,
-    and each 'same' convolution first takes its halo rows from the
-    neighbours.  Returns {layer: [band activations]} for ``wanted``."""
+    and each convolution and pool first takes its halo rows from the
+    neighbours (``with_halo``).  Returns {layer: [band activations]} for
+    ``wanted``."""
     def conv(layer, xs):
-        halo, n = layer.pad[0], len(xs)
-        if halo:
-            xs = [halo_pad(x, xs[i - 1] if i else None, xs[i + 1] if i + 1 < n else None, halo)
-                  for i, x in enumerate(xs)]
-        convs = [e.get_submodule(layer.name) for e in extractors]
-        return [F.conv2d(x, c.weight, c.bias, c.stride, (0, c.padding[1])) for x, c in zip(xs, convs)]
+        return conv_bands([e.get_submodule(layer.name) for e in extractors], xs)
 
-    return extractors[0](list(bands), wanted, conv=conv)
+    def pool(layer, xs):
+        st = band_step(layer)
+        return [pool_layer(x, layer) for x in with_halo(xs, st.above, st.below, st.pad)]
+
+    return extractors[0](list(bands), wanted, conv=conv, pool=pool)
+
+
+def group_norm_bands(norms: Sequence, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """``nn.GroupNorm`` of an image cut into bands (``norms[i]`` on band i's
+    device): each band's per-group sums reduced on the first band's device,
+    the mean sent back, then the squared deviations likewise (nn.GroupNorm's
+    two-pass biased variance), then each band normalised with its affine."""
+    dev, g = xs[0].device, norms[0].num_groups
+
+    def grouped(x):
+        return x.reshape(x.shape[0], g, -1)
+
+    count = sum(grouped(x).shape[2] for x in xs)
+    mean = sum_on(dev, [grouped(x).sum(2) for x in xs]) / count
+    var = sum_on(dev, [torch.square(grouped(x) - mean.to(x.device)[..., None]).sum(2) for x in xs]) / count
+    out = []
+    for m, x in zip(norms, xs):
+        mu, v = mean.to(x.device)[..., None], var.to(x.device)[..., None]
+        y = ((grouped(x) - mu) * torch.rsqrt(v + m.eps)).reshape(x.shape)
+        out.append(y * m.weight[:, None, None] + m.bias[:, None, None])
+    return out
+
+
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def replica(model: torch.nn.Module, device) -> torch.nn.Module:
+    """``model`` on ``device``: itself where its weights are, else a copy
+    kept on the model and made again once its weights have changed in
+    place (``load_state_dict``)."""
+    device = torch.device(device)
+    if device == _device_of(model):
+        return model
+    stamp = tuple(p._version for p in model.parameters())
+    cache = model.__dict__.setdefault("_replicas", {})
+    if device not in cache or cache[device][0] != stamp:
+        cache[device] = (stamp, copy.deepcopy(model).to(device))
+    return cache[device][1]
+
+
+def banded_decode(vqgan, z: torch.Tensor, mesh) -> torch.Tensor:
+    """``VQGAN.decode`` of a (B, D, h, w) z on a mesh's "space" axis (the
+    first "frames" row's devices where there is a "frames" axis too): z cut
+    into row bands, one per device (``band_rows``, alignment 1: the decoder
+    has no strided layer), decoded band by band through ``conv_bands`` and
+    ``group_norm_bands`` (the attention already gathers every band's keys),
+    the image gathered on the first device.  The gradient reaches every band
+    of z.  Without a "space" axis the whole decode; a "tensor" axis raises."""
+    plan = sharding_for(mesh)
+    _, tensor_axis, space_axis, _ = plan.spec if plan else (None,) * 4
+    if tensor_axis:
+        raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e")
+    if not space_axis:
+        return vqgan.decode(z)
+    devices = list(mesh_rows(mesh)[0])
+    _, d, h, w = z.shape
+    bands = split_rows(z, band_rows(h, len(devices), 1), devices, d, w)
+    roots = ("post_quant_conv", "decoder")  # what decoding reads (not the encoder, nor the codebook)
+    where = {m: (r, n) for r in roots for n, m in getattr(vqgan, r).named_modules()}
+    copies = {r: [replica(getattr(vqgan, r), dev) for dev in devices] for r in roots}
+
+    def on(f):  # a hook with each band's copy of the module
+        def hook(m, xs):
+            r, n = where[m]
+            return f([c.get_submodule(n) for c in copies[r]], xs)
+
+        return hook
+
+    xs = vqgan.decode(bands, Hooks(conv=on(conv_bands), norm=on(group_norm_bands)))
+    return torch.cat([x.to(devices[0]) for x in xs], dim=2)
+
 
 def split_rows(x: torch.Tensor, heights: Sequence[int], devices: Sequence, channels: int, width: int) -> list:
     """A pastiche-sized tensor cut into bands on ``devices``: an image
@@ -216,14 +390,6 @@ class WindowLayout(NamedTuple):
                 for b in share if b.shape[0] > a + e]
 
 
-def level_heights(heights: Sequence[int], stride: int) -> list[int]:
-    """Band heights after pools of total stride ``stride`` (floor mode: the
-    ragged rows of the last band drop)."""
-    total = sum(heights) // stride
-    inner = [h // stride for h in heights[:-1]]
-    return inner + [total - sum(inner)]
-
-
 def sum_on(device, values: Sequence[torch.Tensor]) -> torch.Tensor:
     """Per-band partial values summed on ``device``, in band order."""
     out = values[0].to(device)
@@ -232,5 +398,6 @@ def sum_on(device, values: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
-__all__ = ["band_alignment", "band_rows", "halo_pad", "banded_forward", "split_rows", "gather_rows",
-           "WindowLayout", "level_heights", "sum_on"]
+__all__ = ["BandStep", "band_step", "band_geometry", "band_alignment", "band_rows", "level_heights", "halo_pad",
+           "with_halo", "conv_bands", "banded_forward", "group_norm_bands", "replica", "banded_decode", "split_rows",
+           "gather_rows", "WindowLayout", "sum_on"]

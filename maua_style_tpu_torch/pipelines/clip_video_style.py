@@ -28,7 +28,7 @@ from .. import io as mio
 from ..config import single_device
 from ..engine.optimize import apply_precision
 from ..io.image import CAFFE_MEAN
-from .clip_vqgan import get_engine
+from .clip_vqgan import ONE_DEVICE, get_engine
 from .flow_prepass import start_flow_prepass, work_dir
 from .frame_loop import run_video_style_passes
 
@@ -42,7 +42,7 @@ def _rgb01_to_bgr(x: np.ndarray) -> np.ndarray:
 
 
 def clip_video_style(args) -> None:
-    single_device(args, "clip_video_style", "18d")
+    single_device(args, "clip_video_style", ONE_DEVICE)
     # TF32 flags are process-wide: off before the pre-pass thread runs its
     # convolutions, as the engine keeps them
     apply_precision("highest")

@@ -60,6 +60,9 @@ def size_to_fit(size, max_dim, scale_up=False):
 
 # the CLIP backbones with a download source (``io/download.SOURCES``)
 CLIP_SOURCES = {"ViT-B/32": "clip_vitb32", "RN50": "clip_rn50"}
+# the CLIs' guard on a mesh: JAX's clip CLIs run on its default device and
+# never shard; the banded decoder is a model property (spatial.banded_decode)
+ONE_DEVICE = "JAX's CLI runs on one device (parallel/spatial.banded_decode decodes on a mesh)"
 
 
 def download_names(clip_backbone: str, vqgan_dir: str) -> list[str]:
@@ -342,7 +345,7 @@ def main(argv=None):
         from ..io.download import ensure_weights
 
         ensure_weights(download_names(args.clip_backbone, args.vqgan_dir))
-    device = single_device(args, "clip_vqgan", "18d")
+    device = single_device(args, "clip_vqgan", ONE_DEVICE)
 
     if args.seed >= 0:
         np.random.seed(args.seed)

@@ -124,7 +124,7 @@ def main(argv=None):
     ap.add_argument("--text", type=str, default=None)
     ap.add_argument("--gpu", type=str, default="0", help="CUDA device id '0', or 'c' for the CPU")
     args = ap.parse_args(argv)
-    device = single_device(args, "nca_gen", "18i")
+    device = single_device(args, "nca_gen", "JAX's CLI takes no device and runs on one")
 
     stem = name(args.style_file)
     ckpt = args.checkpoint or f"{args.out_dir}/{stem}_7500.npz"

@@ -218,7 +218,7 @@ def main(argv=None):
         seed=args.seed,
         model_file=args.model_file,
         allow_random_weights=args.allow_random_weights or None,
-        device=single_device(args, "nca_train", "18i"),
+        device=single_device(args, "nca_train", "JAX's CLI takes no device and runs on one"),
     )
 
 

@@ -108,8 +108,10 @@ def test_band_rows_and_alignment():
         spatial.band_rows(40, 4, 16)
     for model in ("vgg16", "prune", "sod", "nyud", "fcn32s"):
         assert spatial.band_alignment(select_model(model)) == 32
-    with pytest.raises(NotImplementedError, match="18k"):
-        spatial.band_alignment(select_model("nin"))
+    # NIN up to relu11 and whole: conv1's stride 4 and three 3x3/2 pools (pool4 is 6x6/1)
+    nin = StyleEngine(select_model("nin"), init_params(select_model("nin")),
+                      LossConfig(content_layers=("relu8",), style_layers=("relu1", "relu11")), device="cpu").spec
+    assert spatial.band_alignment(nin) == 32 and spatial.band_alignment(select_model("nin")) == 32
 
 
 @pytest.mark.parametrize("neighbours", ["both", "above", "below"])
@@ -122,7 +124,7 @@ def test_halo_pad_gradcheck(neighbours):
     x, above, below = rnd(3), rnd(4), rnd(2)
     above = above if neighbours in ("both", "above") else None
     below = below if neighbours in ("both", "below") else None
-    out = spatial.halo_pad(x, above, below, 1)
+    out = spatial.halo_pad(x, above, below, 1, 1)
     assert out.shape == (1, 2, 5, 5)
     if above is None:
         assert torch.all(out[:, :, 0] == 0)
@@ -133,7 +135,7 @@ def test_halo_pad_gradcheck(neighbours):
     def fn(*ts):
         it = iter(ts)
         return spatial.halo_pad(next(it), next(it) if above is not None else None,
-                                next(it) if below is not None else None, 1)
+                                next(it) if below is not None else None, 1, 1)
 
     assert torch.autograd.gradcheck(fn, inputs)
 
@@ -166,7 +168,7 @@ def test_banded_step_matches_unbanded(vgg19_engine, use_covariance, n, height):
     heights = spatial.band_rows(height, n, 16)
     devices = [CPU] * n
     bands = [b.requires_grad_(True) for b in spatial.split_rows(p, heights, devices, 3, width)]
-    level = spatial.level_heights(heights, 8)  # relu4_2, after three pools
+    level = spatial.level_heights(heights, engine.spec, "relu4_2")  # after three pools
     banded_targets = {"style": targets["style"], "content": {
         l: spatial.split_rows(t, level, devices, t.shape[1], t.shape[3]) for l, t in targets["content"].items()}}
     btotal, bper = evaluate_banded_losses(bands, engine._extract_bands(bands, cfg.all_layers), banded_targets, cfg)
@@ -290,9 +292,21 @@ def _write_inputs(d):
     Image.fromarray(np.stack([s, 255 - s, np.roll(s, 8, 0)], -1)).save(d / "style.png")
 
 
-def test_img_img_cli_space2_matches_jax(tmp_path, monkeypatch):
-    """``--gpu c --mesh space:2`` on both CLIs, a 40x60 content at 48 and 64
-    px (two bands of VGG-19's 16-row multiples): the port's two bands and
+# per model: --image_sizes, --num_iters and the layer flags.  VGG-19: a
+# 40x60 content at 48 and 64 px, two bands of its 16-row multiples.  NIN:
+# the scaling table's layers (configs/scaling-img.json from 6496 px) at 96
+# and 128 px, two bands of its 32-row multiples (96 rows cut 32 + 64: an
+# even cut leaves the last band no row after pool3)
+CLI_MODELS = {
+    "vgg19": ("48,64", "4,3", []),
+    "nin": ("96,128", "4,3", ["--style_layers", "relu1,relu3,relu5,relu7,relu9,relu11", "--content_layers", "relu8"]),
+}
+
+
+@pytest.mark.parametrize("model", sorted(CLI_MODELS))
+def test_img_img_cli_space2_matches_jax(tmp_path, monkeypatch, model):
+    """``--gpu c --mesh space:2`` on both CLIs (``CLI_MODELS``' sizes),
+    weights carried across in ``{model}.npz``: the port's two bands and
     JAX's two virtual devices within the u8 drift bounds of
     tests/test_torch_img_img.py, and the port's banded run against its
     unbanded one: the same artifacts within those bounds and the loss logs
@@ -300,12 +314,13 @@ def test_img_img_cli_space2_matches_jax(tmp_path, monkeypatch):
     matching between scales, and Adam's sign(g) steps from the 0.001·N(0,
     1) init, turn the 1e-7 by which a banded Gram sum differs into whole u8
     levels (73 at 48 px with both on; 0 without matching).  The port's
-    loss logs against JAX's are not held here: at this input the TV term
-    (≈ 0.3 of ≈ 1e6) follows float noise by 2% at two torch threads,
+    loss logs against JAX's are not held here: at VGG-19's input the TV
+    term (≈ 0.3 of ≈ 1e6) follows float noise by 2% at two torch threads,
     banded or not (tests/test_torch_img_img.py holds them at its input)."""
     _write_inputs(tmp_path)
-    npz = tmp_path / "vgg19.npz"
-    save_npz_params(jax_init_params(jax_select_model("vgg19")), str(npz))
+    npz = tmp_path / f"{model}.npz"
+    save_npz_params(jax_init_params(jax_select_model(model)), str(npz))
+    sizes, iters, layers = CLI_MODELS[model]
     engines = []
     orig = torch_img_img.build_engine
 
@@ -318,8 +333,8 @@ def test_img_img_cli_space2_matches_jax(tmp_path, monkeypatch):
     def argv(out, mesh):
         return ["--content", str(tmp_path / "content.png"), "--style", str(tmp_path / "style.png"),
                 "--output_dir", str(tmp_path / out), "--gpu", "c", "--model_file", str(npz),
-                "--image_sizes", "48,64", "--num_iters", "4,3", "--seed", "0", "--optimizer", "lbfgs",
-                "--no_hist_match", "--scaling_args", str(tmp_path / "none.json"), "--mesh", mesh]
+                "--image_sizes", sizes, "--num_iters", iters, "--seed", "0", "--optimizer", "lbfgs",
+                "--no_hist_match", "--scaling_args", str(tmp_path / "none.json"), "--mesh", mesh, *layers]
 
     jax_style.main(argv("jax", "space:2"))
     torch_style.main(argv("torch", "space:2"))
@@ -327,7 +342,7 @@ def test_img_img_cli_space2_matches_jax(tmp_path, monkeypatch):
     assert [e.band_devices for e in engines] == [[CPU, CPU]] * 2 + [None] * 2
     for banded, single in zip(engines[:2], engines[2:]):
         np.testing.assert_allclose(banded.last_loss_log, single.last_loss_log, rtol=1e-4, atol=1e-6)
-    for size in (48, 64):
+    for size in sizes.split(","):
         name = f"content_style_{size}.png"
         _assert_u8_drift(str(tmp_path / "jax" / name), str(tmp_path / "torch" / name))
         _assert_u8_drift(str(tmp_path / "single" / name), str(tmp_path / "torch" / name))
@@ -379,9 +394,13 @@ def _two_cards(monkeypatch):
 
 
 def test_engine_paths_left_unsharded_raise():
-    """The "tensor" axis (18e) and NIN on "space" (18k) raise, for img_vid's
-    windows too (item 18c runs them on "frames" and "space" meshes,
-    tests/test_torch_parallel_windows.py)."""
+    """The "tensor" axis (18e) raises, for img_vid's windows too (item 18c
+    runs them on "frames" and "space" meshes,
+    tests/test_torch_parallel_windows.py).  NIN on "space:2" and on
+    "frames:2,space:2" (item 18k) now runs: an engine on two bands of 16-row
+    multiples (NIN up to relu8), and vid_img's stacked first pass on the combined mesh giving
+    finite frames of the asked shape (its results against unbanded runs:
+    tests/test_torch_parallel_nin.py)."""
     rng = np.random.default_rng(0)
     u8 = rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
     style = rng.random((1, 32, 32, 3), np.float32)
@@ -391,14 +410,14 @@ def test_engine_paths_left_unsharded_raise():
                                                 1, transfer_type="img_vid", gram_frame_window=2)
     spec = select_model("nin")
     nin_cfg = LossConfig(content_layers=("relu8",), style_layers=("relu1",))
-    with pytest.raises(NotImplementedError, match="item 18k"):
-        StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=_mesh([("space", 2)]))
-    # vid_img's stacked first pass on "space" (items 18b, 18f) bands
-    # VGG-style nets only: NIN's layers move band boundaries
+    engine = StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=_mesh([("space", 2)]))
+    assert engine.band_devices == [CPU, CPU] and engine.band_align == 16  # up to relu8: conv1 and two pools
     combined = _mesh([("frames", 2), ("space", 2)])
-    with pytest.raises(NotImplementedError, match="item 18k"):
-        StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=combined).optimize_frames(
-            u8, [style], 1, out_hw=(32, 32), blend_weights=[1.0], init_mode="content")
+    frames = rng.integers(0, 255, (4, 96, 40, 3)).astype(np.uint8)
+    pastiches, displays = StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=combined).optimize_frames(
+        frames, [style], 1, out_hw=(96, 40), blend_weights=[1.0], init_mode="content")
+    assert pastiches.shape == (4, 1, 3, 96, 40) and displays.shape == (4, 96, 40, 3)
+    assert torch.isfinite(pastiches).all()
 
 
 def test_single_device_clis_raise_on_a_mesh(tmp_path, monkeypatch):
@@ -410,14 +429,14 @@ def test_single_device_clis_raise_on_a_mesh(tmp_path, monkeypatch):
     from maua_style_tpu_torch.pipelines import clip_video_style, clip_vqgan, img_img, nca_gen, nca_train, similarity
 
     _two_cards(monkeypatch)
-    with pytest.raises(NotImplementedError, match="item 18d"):
+    with pytest.raises(NotImplementedError, match="JAX's CLI runs on one device"):
         clip_vqgan.main(["--content", "random", "--style_text", "x", "--gpu", "0,1", "--allow_random_weights"])
-    with pytest.raises(NotImplementedError, match="item 18i"):
+    with pytest.raises(NotImplementedError, match="JAX's CLI takes no device"):
         nca_train.main(["s.png", str(tmp_path / "nca"), "--gpu", "0,1"])
-    with pytest.raises(NotImplementedError, match="item 18i"):
+    with pytest.raises(NotImplementedError, match="JAX's CLI takes no device"):
         nca_gen.main(["s.png", str(tmp_path / "nca"), "--gpu", "0,1"])
     args = config.get_args(["--gpu", "c", "--mesh", "space:2", "--content", "c.png", "--style", "s.png"])
-    with pytest.raises(NotImplementedError, match="item 18d"):
+    with pytest.raises(NotImplementedError, match="JAX's CLI runs on one device"):
         clip_video_style.clip_video_style(args)
     data = tmp_path / "data"
     data.mkdir()

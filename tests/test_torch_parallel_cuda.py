@@ -73,7 +73,7 @@ def test_banded_step_on_one_card_twice(use_covariance):
     heights = spatial.band_rows(h, 2, 16)
     assert heights == [80, 88]
     bands = [b.requires_grad_(True) for b in spatial.split_rows(p, heights, devices, 3, w)]
-    level = spatial.level_heights(heights, 8)
+    level = spatial.level_heights(heights, engine.spec, "relu4_2")
     banded = {"style": targets["style"], "content": {
         l: spatial.split_rows(t, level, devices, t.shape[1], t.shape[3]) for l, t in targets["content"].items()}}
     before = G.gram.launches
