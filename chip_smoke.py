@@ -36,7 +36,10 @@ Phases, each of which must pass (nothing is caught and passed over):
    frames at 256, 5 + 4 at 512, 4 + 3 at 724); and at phase 6l's: NIN's
    six style layers (relu1 … relu11) of a 9088² image whole and in its two
    row bands, (1, 96, 5152900) … (1, 1024, 39903), and of the CLI's 256²
-   and 512² whole and banded.
+   and 512² whole and banded; and at phase 6n's: the channel shares of
+   VGG-19's five style layers at 1024² on tensor:2, (1, 32, 1048576) …
+   (1, 256, 4096), and on space:2,tensor:3, (1, 22, 524288) … (1, 170,
+   2048), and of the CLI's 256² and 512² on tensor:3.
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -218,6 +221,18 @@ Phases, each of which must pass (nothing is caught and passed over):
    random projection with respect to z within 1e-4 of their max
    (``run_vqgan_space`` says why), ms of the forward and of forward plus
    gradient, and each one's peak memory; K1 and K2 0.
+6n. The "tensor" mesh axis, one card standing in for two and six:
+   img_img's ``StyleEngine.optimize`` at 1024² (VGG-19 f32, L-BFGS history
+   100, TF32 off) unsharded, on tensor:2 over ``[cuda:0] * 2`` and on
+   space:2,tensor:3 over ``[cuda:0] * 6``: under ``cudnn.deterministic``
+   one step's loss terms (rtol 1e-5) and gradient, and 10 iterations from
+   the content init at lr 0.1 (6h's bars, or twice the unsharded run's own
+   difference at an input one f32 spacing off where that is larger:
+   ``run_tensor`` says why); K1's launches (5 per share per
+   band an iteration, plus the capture's) and inputs, the off-diagonal
+   Gram blocks' plain products; ms/iter, peak memory and the products'
+   device ms at lr 1; then the style CLI with ``--gpu 0,0,0 --mesh
+   tensor:3`` at 256 and 512: the PNGs, finite loss logs, launches.
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -230,12 +245,16 @@ Phases, each of which must pass (nothing is caught and passed over):
    beside the estimate and its error, with the allocator's reserved peak
    and the free memory, the constants fitted to them, the measured search
    for VGG-19 (L-BFGS and Adam, f32; its budget the free memory at its
-   start) written to chiprun_out/chip_smoke/, one img_img scale at the
-   L-BFGS safe size in this process (beside the fresh-process table's),
-   ``hbm_bytes()`` and the frame sizing; fails if that scale runs out of
-   memory or the allocator's count does not return to its start.
-8. The script's seconds, a ``kernels`` JSON line, the card line, and last
-   the ``ok`` line.
+   start) written to chiprun_out/chip_smoke/, with each probe's reserved
+   and allocated peaks and seconds and each search's probes and seconds,
+   one img_img scale at the L-BFGS safe size in this process (beside the
+   fresh-process table's), the estimate's VGG-19 tables at 2, 4 and 8
+   devices (the measured 2-device probe needs two distinct cards: on one
+   it prints that it did not run), ``hbm_bytes()`` and the frame sizing;
+   fails if that scale runs out of memory or the allocator's count does
+   not return to its start.
+8. The script's seconds (and each phase's, as it ends), a ``kernels``
+   JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without an ``ok`` line when there is no CUDA device, when
 the package is not beside this script, or when any phase fails.  Details
@@ -245,8 +264,10 @@ deleted once checked.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -1956,7 +1977,10 @@ def run_tuner(results: dict) -> None:
     ``fit_constants`` fits to these peaks with their own error; then
     ``probe_max_sizes`` for VGG-19 (L-BFGS and Adam, f32, the budget the
     card's free memory at the search's start less the allocator's reserve,
-    ``search_budget_bytes``), written to OUT, with its probes and seconds;
+    ``search_budget_bytes``), written to OUT, with its probes (each one's
+    reserved and allocated peaks and seconds) and each search's probes and
+    seconds; the estimate's VGG-19 tables at 2, 4 and 8 devices, and the
+    measured 2-device probe where two cards are visible;
     the size it calls safe for L-BFGS run as one img_img scale (the style
     CLI, 2 iterations) in this same process, beside the fresh-process
     table's; ``hbm_bytes()`` and the frame sizing at 1024x576 and 512x288.
@@ -2003,8 +2027,13 @@ def run_tuner(results: dict) -> None:
     probes = []
 
     def counted(fn, *a, **kw):
-        probes.append(a[2])
-        return fn(*a, **kw)
+        t0, retries = time.perf_counter(), torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        got = fn(*a, **kw)
+        # the caching allocator's retries: a cudaMalloc that failed, the cached blocks handed back, and again
+        probes.append({"optimizer": a[1], "size": a[2], "s": time.perf_counter() - t0,
+                       "reserved": got[0] if got else None, "allocated": got[1] if got else None,
+                       "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries})
+        return got
 
     t0 = time.perf_counter()
     budget = ms.search_budget_bytes()
@@ -2012,12 +2041,32 @@ def run_tuner(results: dict) -> None:
         table = ms.probe_max_sizes(models=("vgg19",), optimizers=("lbfgs", "adam"), method="analysis",
                                    compute_dtype="float32", budget_bytes=budget)
     search = {"table": table, "probes": probes, "s": time.perf_counter() - t0, "budget_bytes": budget,
-              "total_memory": torch.cuda.get_device_properties(0).total_memory}
+              "total_memory": torch.cuda.get_device_properties(0).total_memory,
+              "by_optimizer": {opt: {"probes": sum(p["optimizer"] == opt for p in probes),
+                                     "s": sum(p["s"] for p in probes if p["optimizer"] == opt)}
+                               for opt in ("lbfgs", "adam")}}
     with open(os.path.join(OUT, "max-sizes-vgg19-float32.json"), "w") as f:
         json.dump(table, f, indent=2)
     print("tuner search", json.dumps(search))
-    search["scale"] = run_tuner_scale(table["vgg19,lbfgs,1"]["safe_max_size"])
+    for opt, row in search["by_optimizer"].items():
+        print(f"tuner search: VGG-19 f32 {opt} bracketed in {row['probes']} probes, {row['s']:.1f} s")
+    # N-device tables: the estimate anywhere; the measured probe on N distinct cards only
     hbm = ms.hbm_bytes()
+    search["estimate_devices"] = {
+        n: {k: v["safe_max_size"] for k, v in ms.probe_max_sizes(models=("vgg19",), method="estimate", devices=n,
+                                                                 budget_bytes=hbm, compute_dtype="float32",
+                                                                 verbose=False).items()}
+        for n in TUNER_DEVICES}
+    print("tuner: estimated VGG-19 f32 safe sizes on N devices sharing each image in row bands",
+          json.dumps(search["estimate_devices"]))
+    if torch.cuda.device_count() >= 2:
+        search["measured_devices"] = ms.probe_max_sizes(models=("vgg19",), optimizers=("adam",), method="analysis",
+                                                        devices=2, compute_dtype="float32")
+    else:
+        search["measured_devices"] = (f"not run: {torch.cuda.device_count()} CUDA device visible (the sharded probe "
+                                      "needs 2 distinct cards; one card repeated would read the sum of the bands)")
+    print(f"tuner: the measured 2-device probe: {search['measured_devices']}")
+    search["scale"] = run_tuner_scale(table["vgg19,lbfgs,1"]["safe_max_size"])
     sizing = {f"{h}x{w} {opt}": {"frames_per_program": ms.frames_per_program("vgg19", opt, (h, w), hbm=hbm),
                                  "chain_frames_per_program": ms.chain_frames_per_program("vgg19", opt, (h, w), hbm=hbm)}
               for h, w in ((576, 1024), (288, 512)) for opt in ("lbfgs", "adam")}
@@ -3000,6 +3049,8 @@ def run_similarity(results: dict) -> dict[str, int]:
 # the mesh phases: a space:2 img_img at 1024², a frames:2 first
 # pass of phase 5's first scale, and the fidelity run
 SPACE_SIDE, SPACE_ITERS, SPACE_BANDS, SPACE_LR = 1024, 10, 2, 0.1
+# the tuner phase's estimate tables: devices sharing each image
+TUNER_DEVICES = (2, 4, 8)
 FRAMES_B, FRAMES_SIZE = 8, VID_SIZES[0]
 FID_SIZES, FID_ITERS = (256, 512), (20, 10)
 # the fidelity phase's runs: the CLI's lr (report only) and the gated one
@@ -3172,7 +3223,7 @@ def run_fidelity(results: dict) -> dict[str, int]:
 def step_apart(x, one, targets: dict, two, btargets: dict) -> dict:
     """One step at ``x``, a (B, C, H, W) pastiche, through the unbanded
     engine ``one`` with ``targets`` and through ``two``'s bands ("space"
-    mesh) with ``btargets``: the loss terms' largest relative difference,
+    mesh; on a "tensor" axis its (band, share) pieces) with ``btargets``: the loss terms' largest relative difference,
     the gradients' largest difference over the gradient's max, and the
     unbanded terms."""
     import torch
@@ -3185,7 +3236,8 @@ def step_apart(x, one, targets: dict, two, btargets: dict) -> dict:
     (grad,) = torch.autograd.grad(total, x)
     split, gather = two._band_layout(x.shape)
     bands = [b.requires_grad_(True) for b in split(x.detach())]
-    btotal, bper = evaluate_banded_losses(bands, two._extract_bands(bands, cfg.all_layers), btargets, cfg)
+    btotal, bper = evaluate_banded_losses(bands, two._extract_bands(bands, cfg.all_layers), btargets, cfg,
+                                          shares=two.shares)
     bgrad = gather(list(torch.autograd.grad(btotal, bands)))
     per, bper = per.detach(), bper.detach()
     return {"loss_rtol": float(((bper - per).abs() / per.abs().clamp(min=1e-30)).max()),
@@ -3615,6 +3667,317 @@ def run_vqgan_space(results: dict) -> dict[str, int]:
     return counts
 
 
+# phase 6n: img_img's engine on "tensor" meshes of one card standing in for
+# two and six (channel shares alone, and beside two bands), then the CLI on
+# tensor:3 over a short pyramid
+TENSOR_SIDE, TENSOR_ITERS, TENSOR_LR = 1024, 10, 0.1
+TENSOR_MESHES = (("tensor2", (("tensor", 2),)), ("space2_tensor3", (("space", 2), ("tensor", 3))))
+TENSOR_CLI_MESH, TENSOR_CLI_SIZES, TENSOR_CLI_ITERS = (("tensor", 3),), (256, 512), (10, 5)
+
+
+def mesh_arg(axes) -> str:
+    """``--mesh``'s form of ((axis, size), ...)."""
+    return ",".join(f"{a}:{n}" for a, n in axes)
+
+
+def tensor_gram_shapes(side: int, axes) -> list[tuple[int, int, int]]:
+    """(1, C_t, N) of VGG-19's style layers for a side² image on a mesh of
+    ``axes``: each layer's channel shares (``parallel.channel_shares``) of
+    each band (``spatial.band_rows`` and ``level_heights``), K1's diagonal
+    blocks."""
+    from maua_style_tpu_torch.parallel import channel_shares, spatial
+
+    spec = vgg19_spec()
+    sizes = dict(axes)
+    bands = sizes.get("space", 1)
+    heights = spatial.band_rows(side, bands, 16, spec) if bands > 1 else [side]
+    out = []
+    for c, layer in VGG_STYLE:
+        width = spatial.level_heights([side], spec, layer)[0]
+        for h in spatial.level_heights(heights, spec, layer):
+            out += [(1, ch.stop - ch.start, h * width) for ch in channel_shares(c, sizes.get("tensor", 1))]
+    return out
+
+
+def tensor_run_gram_shapes() -> list[tuple[int, int, int]]:
+    """K1's new inputs on phase 6n, in order and unique: the engine's at
+    1024² on each mesh, then the CLI's at 256² and 512² on tensor:3."""
+    runs = [(TENSOR_SIDE, axes) for _, axes in TENSOR_MESHES]
+    runs += [(side, TENSOR_CLI_MESH) for side in TENSOR_CLI_SIZES]
+    return list(dict.fromkeys(s for side, axes in runs for s in tensor_gram_shapes(side, axes)))
+
+
+def check_tensor_gram(results: dict) -> dict:
+    """K1 at every (1, C_t, N) input of phase 6n, f32, with phase 2's bars
+    and times: ragged channel counts (21, 22, 43, 85, 171 …) meet the
+    kernel's zero fill of a partial tile."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    rows = []
+    engine = {key: set(tensor_gram_shapes(TENSOR_SIDE, axes)) for key, axes in TENSOR_MESHES}
+    for shape in tensor_run_gram_shapes():
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), "meshes": [k for k, v in engine.items() if shape in v], **measure_gram(f)}
+        rows.append(row)
+        print("tensor gram", json.dumps(row))
+        del f
+    results["gram_tensor"] = rows
+
+    def total(rs, key):
+        return sum(r[key] for r in rs)
+
+    out = {"shapes": len(rows), "ms": total(rows, "kernel_ms"), "plain_ms": total(rows, "plain_ms"),
+           "library_ms": total(rows, "library_ms"), "bound_ms": total(rows, "bound_ms"),
+           "slower_than_library": [r["shape"] for r in rows if r["kernel_ms"] >= r["library_ms"]],
+           "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows)}
+    for key, axes in TENSOR_MESHES:  # one iteration's diagonal blocks at 1024² on each mesh, each launch counted
+        launches = collections.Counter(tensor_gram_shapes(TENSOR_SIDE, axes))
+        out[key] = {k: sum(r[k] * launches[tuple(r["shape"])] for r in rows)
+                    for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    return out
+
+
+def tensor_off_diagonal_ms(side: int, axes) -> float:
+    """Device ms of one iteration's off-diagonal Gram blocks on a mesh of
+    ``axes``: at each style layer, for each band and each pair of channel
+    shares t < u, the product F_t F_uᵀ forward and its gradient to both
+    operands (``ops.gram._cross_block`` under autograd), on random
+    activations of the piece's shapes; CUDA events, median of 7."""
+    import torch
+
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.parallel import channel_shares, spatial
+
+    spec = vgg19_spec()
+    sizes = dict(axes)
+    bands = sizes.get("space", 1)
+    heights = spatial.band_rows(side, bands, 16, spec) if bands > 1 else [side]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    total = 0.0
+    for c, layer in VGG_STYLE:
+        width = spatial.level_heights([side], spec, layer)[0]
+        chs = [ch.stop - ch.start for ch in channel_shares(c, sizes.get("tensor", 1))]
+        for hb in spatial.level_heights(heights, spec, layer):
+            for t in range(len(chs)):
+                for u in range(t + 1, len(chs)):
+                    a = torch.randn((chs[t], hb * width), device="cuda", generator=gen).requires_grad_(True)
+                    b = torch.randn((chs[u], hb * width), device="cuda", generator=gen).requires_grad_(True)
+                    g = torch.randn((chs[t], chs[u]), device="cuda", generator=gen)
+                    total += time_ms(lambda: torch.autograd.grad(G._cross_block(a, b), (a, b), g))
+    return total
+
+
+def run_tensor(results: dict) -> dict[str, dict]:
+    """img_img's ``StyleEngine.optimize`` at 1024² (VGG-19 f32, the default
+    layers, L-BFGS history 100, TF32 off) unsharded, on tensor:2 over
+    ``[cuda:0] * 2`` (each layer's channels in two shares: 3 → 2 + 1, 64 →
+    32 + 32 …) and on space:2,tensor:3 over ``[cuda:0] * 6`` (two bands
+    of three shares: 64 → 22 + 21 + 21 …), under ``cudnn.deterministic``:
+
+    - one step from the content init: every loss term within rtol 1e-5
+      (6h's bar) and the gradient within 1e-4 of its max (6h's) or, past
+      that, within twice the unsharded gradient's own difference at an
+      input one f32 spacing off (up and down).  A share's convolution sums
+      its input channels in another order than the whole one, so its
+      activations differ in the last bits (the bands' are bit for bit the
+      whole image's), and VGG-19's ReLUs and max-pools route the gradient
+      by those bits at near-ties, as they do between two inputs one f32
+      spacing apart (PERF.md has the figures);
+    - 10 iterations from the content init at lr 0.1: the first two totals
+      within rtol 1e-5, every total within rtol 1e-4 and mean|Δ| within
+      1e-2 of mean|p| (6h's bars), or, past those, within twice the
+      unsharded run's own drift from an init one f32 spacing off, for the
+      same reason;
+    - K1's launches (5 a style capture; 5 per share per band an
+      iteration) and inputs (among phase 2's), and the off-diagonal Gram
+      blocks' plain products (5 per band per pair of shares an iteration).
+
+    Then, with cuDNN's default algorithms, lr 1 and warmed up, ms/iter and
+    the peak memory of each in turns, with the off-diagonal products'
+    device ms an iteration (``tensor_off_diagonal_ms``).  Then the style
+    CLI with ``--gpu 0,0,0 --mesh tensor:3`` at 256 and 512 (10 and 5
+    iterations): the PNGs, finite loss logs, every engine on three
+    shares, K1's launches and inputs.  Returns each run's launches."""
+    import numpy as np
+    import torch
+
+    from maua_style_tpu_torch import io as mio
+    from maua_style_tpu_torch import style as style_cli
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw
+    from maua_style_tpu_torch.losses import LossConfig, evaluate_losses
+    from maua_style_tpu_torch.models import init_params, select_model
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.resize import resize_bilinear_np
+    from maua_style_tpu_torch.parallel import build_mesh
+    from maua_style_tpu_torch.pipelines import img_img as img_img_module
+
+    t_phase = time.perf_counter()
+    run_dir = os.path.join(OUT, "tensor")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    content = mio.preprocess(c_path)
+    style = resize_bilinear_np(mio.preprocess(s_path), size=(TENSOR_SIDE, TENSOR_SIDE))
+    spec = select_model("vgg19")
+    params = init_params(spec, seed=0)
+    dev = torch.device("cuda", 0)
+    meshes = {"unsharded": None, **{key: build_mesh([dev] * int(np.prod([n for _, n in axes])), list(axes))
+                                    for key, axes in TENSOR_MESHES}}
+    chunks, products = [], [0]
+
+    def engine_on(m, lr=1.0):
+        return StyleEngine(spec, params, LossConfig(), optimizer="lbfgs", learning_rate=lr, lbfgs_history=100,
+                           precision="highest", device=dev, mesh=m)
+
+    def timed_run(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        chunks.append((time.perf_counter() - t0) * 1e3 / a[5])
+        return out
+
+    def counted_block(fn, a, b):
+        products[0] += 1
+        return fn(a, b)
+
+    def run(key, lr=1.0, init=None, seen=None):
+        engine = engine_on(meshes[key], lr)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        chunks.clear()
+        products[0] = 0
+        wrap = [(StyleEngine, "_run", timed_run), (G, "_cross_block", counted_block)]
+        if seen is not None:
+            wrap.append((G._GramFn, "apply", gram_inputs_into(seen)))
+        with patched(*wrap):
+            reset_counts()
+            out = engine.optimize(content, [style], content if init is None else init, TENSOR_ITERS)
+            counts = {**read_counts(), "products": products[0]}
+        peak = torch.cuda.max_memory_allocated() - base
+        return out, engine.last_loss_log, counts, chunks[-1], peak
+
+    def apart(p, log, p_ref, log_ref):
+        rtol = np.abs(log.sum(axis=1) - log_ref.sum(axis=1)) / np.abs(log_ref.sum(axis=1))
+        return {"first_two_rtol": float(rtol[:2].max()), "log_rtol": float(rtol.max()),
+                "log_rtol_by_iteration": rtol.tolist(),
+                "mean_abs_rel_pastiche": float(np.abs(p - p_ref).mean() / np.abs(p_ref).mean()),
+                "max_abs_pastiche": float(np.abs(p - p_ref).max()), "finite": bool(np.isfinite(log).all())}
+
+    def grad_at(engine, x, targets):
+        x = x.detach().requires_grad_(True)
+        total, _ = evaluate_losses(x, engine._extract(x, engine.loss_cfg.all_layers), targets, engine.loss_cfg)
+        return torch.autograd.grad(total, x)[0]
+
+    seen: set = set()
+    steps, parity, counts = {}, {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = engine_on(None)
+        style_t = one.style_targets([style], [1.0])
+        x = to_nchw(content, dev)
+        # the witness: the unsharded gradient at x against at x one f32 spacing up and down
+        one_targets = {"content": one.content_targets(content), "style": style_t}
+        g0 = grad_at(one, x, one_targets)
+        step_witness = max(float((grad_at(one, torch.nextafter(x, torch.full_like(x, towards)), one_targets) - g0)
+                                 .abs().max() / g0.abs().max()) for towards in (float("inf"), float("-inf")))
+        del g0
+        for key, m in meshes.items():
+            if m is not None:
+                two = engine_on(m)
+                steps[key] = step_apart(x, one, {"content": one.content_targets(content), "style": style_t},
+                                        two, {"content": two.content_targets(content), "style": style_t})
+                del two
+        del one
+        p0, log0, counts["unsharded"], _, _ = run("unsharded", TENSOR_LR)
+        nudged = np.nextafter(content, np.float32(np.inf)).astype(np.float32)
+        pw, logw, _, _, _ = run("unsharded", TENSOR_LR, init=nudged)
+        witness = apart(pw, logw, p0, log0)
+        for key, _ in TENSOR_MESHES:
+            p, log, counts[key], _, _ = run(key, TENSOR_LR, seen=seen)
+            parity[key] = apart(p, log, p0, log0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    bars = {"log_rtol": max(1e-4, 2 * witness["log_rtol"]),
+            "mean_abs_rel_pastiche": max(1e-2, 2 * witness["mean_abs_rel_pastiche"]),
+            "step_grad_rel": max(1e-4, 2 * step_witness)}
+    for key in meshes:  # warm-up: cuDNN's algorithms for every piece's shapes
+        run(key)
+    timing = {key: [] for key in meshes}
+    order = list(meshes)
+    for key in order + order[::-1]:
+        _, _, _, ms_iter, peak = run(key)
+        timing[key].append({"ms_per_iter": ms_iter, "peak_bytes": peak})
+    off_diag = {key: tensor_off_diagonal_ms(TENSOR_SIDE, axes) for key, axes in TENSOR_MESHES}
+
+    # the CLI on tensor:3 over a short pyramid
+    engines = []
+
+    def recorded(fn, args, current_size=None):
+        engines.append(fn(args, current_size))
+        return engines[-1]
+
+    cli_seen: set = set()
+    cli_dir = os.path.join(run_dir, "cli")
+    t0 = time.perf_counter()
+    with patched((img_img_module, "build_engine", recorded), (G._GramFn, "apply", gram_inputs_into(cli_seen))):
+        reset_counts()
+        style_cli.main(["--content", c_path, "--style", s_path, "--output_dir", cli_dir,
+                        "--image_sizes", ",".join(map(str, TENSOR_CLI_SIZES)),
+                        "--num_iters", ",".join(map(str, TENSOR_CLI_ITERS)), "--optimizer", "lbfgs",
+                        "--precision", "highest", "--allow_random_weights", "--seed", "0",
+                        "--gpu", ",".join(["0"] * int(np.prod([n for _, n in TENSOR_CLI_MESH]))),
+                        "--mesh", mesh_arg(TENSOR_CLI_MESH), "--scaling_args", os.path.join(run_dir, "none.json")])
+        torch.cuda.synchronize()
+        counts["cli_tensor3"] = read_counts()
+    cli_s = time.perf_counter() - t0
+    pngs = [os.path.join(cli_dir, f"content_style_{size}.png") for size in TENSOR_CLI_SIZES]
+    cli = {"s": cli_s, "pngs": [os.path.exists(f) for f in pngs],
+           "shares": [e.shares for e in engines],
+           "finite": all(e.last_loss_log is not None and np.isfinite(e.last_loss_log).all() for e in engines)}
+    shutil.rmtree(run_dir)
+
+    summary = {"one_step": steps, "one_step_witness_grad_rel": step_witness, "vs_unsharded": parity,
+               "witness_one_ulp_off": witness, "bars": bars,
+               "launches": counts, "timing": timing, "off_diagonal_device_ms_per_iter": off_diag, "cli": cli,
+               "side": TENSOR_SIDE, "iters": TENSOR_ITERS, "lr": TENSOR_LR}
+    summary["phase_s"] = time.perf_counter() - t_phase
+    results["tensor"] = summary
+    print(f"tensor: {TENSOR_SIDE}² on channel shares of one card against unsharded, L-BFGS from the content init at "
+          f"lr {TENSOR_LR}, {TENSOR_ITERS} iterations, and the CLI on {mesh_arg(TENSOR_CLI_MESH)}:",
+          json.dumps(summary))
+    for key, axes in (("unsharded", ()), *TENSOR_MESHES):
+        sizes = dict(axes)
+        pieces, pairs = sizes.get("tensor", 1) * sizes.get("space", 1), math.comb(sizes.get("tensor", 1), 2)
+        want = {"gram": STYLE_LAYERS * (pieces * TENSOR_ITERS + 1), "correlation": 0,
+                "products": STYLE_LAYERS * sizes.get("space", 1) * pairs * TENSOR_ITERS}
+        if counts[key] != want:
+            fail(f"tensor {key}: launches {counts[key]}, expected {want}")
+    cli_pieces = int(np.prod([n for _, n in TENSOR_CLI_MESH]))
+    want_cli = {"gram": sum(STYLE_LAYERS * (cli_pieces * it + 1) for it in TENSOR_CLI_ITERS), "correlation": 0}
+    if counts["cli_tensor3"] != want_cli:
+        fail(f"tensor CLI: launches {counts['cli_tensor3']}, expected {want_cli}")
+    checked = set(tensor_run_gram_shapes())
+    if seen - checked - {(1, c, n) for c, n in vgg_style_shapes(TENSOR_SIDE)}:
+        fail(f"tensor's Gram inputs {sorted(seen - checked)} not among phase 2's")
+    if cli_seen - checked - set(similarity_gram_shapes()):
+        fail(f"tensor CLI's Gram inputs {sorted(cli_seen - checked)} not among phase 2's")
+    for key, step in steps.items():
+        if not (step["loss_rtol"] <= 1e-5 and step["grad_rel"] <= bars["step_grad_rel"]):
+            fail(f"tensor {key}: one step against unsharded: {step} (gradient bar {bars['step_grad_rel']})")
+    for key, row in parity.items():
+        if not (row["finite"] and row["first_two_rtol"] <= 1e-5
+                and all(row[k] <= bars[k] for k in ("log_rtol", "mean_abs_rel_pastiche"))):
+            fail(f"tensor {key} against unsharded: {row} past {bars} (first two within 1e-5)")
+    if not (all(cli["pngs"]) and cli["finite"] and cli["shares"] == [cli_pieces] * len(TENSOR_CLI_SIZES)):
+        fail(f"tensor CLI on {mesh_arg(TENSOR_CLI_MESH)}: {cli}")
+    return {f"tensor_{key}": counts[key] for key, _ in TENSOR_MESHES} | {"tensor_cli": counts["cli_tensor3"]}
+
+
 def run_space_two_cards(run_dir: str, c_path: str, s_path: str) -> dict:
     """The style CLI with ``--gpu 0,1`` at 2048² (5 L-BFGS iterations): each
     card's peak memory."""
@@ -3932,7 +4295,7 @@ def main() -> int:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
         for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
                   "clip_vqgan_rn50", "clip_video_style", "similarity", "fidelity", "space", "frames", "tuner_scale",
-                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames", "nin_space",
+                  *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames", "nin_space", "tensor",
                   *(f"img_vid_{key}" for key, _, _ in IV_MESH)):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
@@ -3947,62 +4310,76 @@ def main() -> int:
 
 
 def run_phases(results: dict) -> tuple[dict, dict]:
-    """Phases 2 to 7; returns the kernels line's K1 and K2 entries."""
-    gram = check_gram(results)
-    gram["img_vid_shapes"] = check_video_gram(results)
-    gram["nca_shapes"] = check_nca_gram(results)
-    gram["similarity_shapes"] = check_similarity_gram(results)
-    gram["vid_img_shapes"] = check_vid_gram(results)
-    gram["mesh_shapes"] = check_mesh_gram(results)
-    gram["img_vid_mesh_shapes"] = check_img_vid_mesh_gram(results)
-    gram["nin_shapes"] = check_nin_gram(results)
-    corr = check_correlation(results)
-    img = run_main_path(results)
-    check_small_against_cpu(results)
-    profile_step(results)
-    vid = run_vid_img(results)
-    check_flow_against_cpu(results)
-    profile_vid_frame(results)
+    """Phases 2 to 7; returns the kernels line's K1 and K2 entries.  Prints
+    each phase's seconds (``results["phase_s"]``)."""
+    phase_s = results.setdefault("phase_s", {})
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"chip_smoke: {name} took {phase_s[name]:.1f} s")
+        return out
+
+    gram = timed("check_gram", check_gram, results)
+    gram["img_vid_shapes"] = timed("check_video_gram", check_video_gram, results)
+    gram["nca_shapes"] = timed("check_nca_gram", check_nca_gram, results)
+    gram["similarity_shapes"] = timed("check_similarity_gram", check_similarity_gram, results)
+    gram["vid_img_shapes"] = timed("check_vid_gram", check_vid_gram, results)
+    gram["mesh_shapes"] = timed("check_mesh_gram", check_mesh_gram, results)
+    gram["img_vid_mesh_shapes"] = timed("check_img_vid_mesh_gram", check_img_vid_mesh_gram, results)
+    gram["nin_shapes"] = timed("check_nin_gram", check_nin_gram, results)
+    gram["tensor_shapes"] = timed("check_tensor_gram", check_tensor_gram, results)
+    corr = timed("check_correlation", check_correlation, results)
+    img = timed("run_main_path", run_main_path, results)
+    timed("check_small_against_cpu", check_small_against_cpu, results)
+    timed("profile_step", profile_step, results)
+    vid = timed("run_vid_img", run_vid_img, results)
+    timed("check_flow_against_cpu", check_flow_against_cpu, results)
+    timed("profile_vid_frame", profile_vid_frame, results)
     shutil.rmtree(os.path.join(OUT, "vid_img"))  # ~200 MB of frames and flow, checked above
-    check_stacked_against_per_frame(results)
-    vid_d = run_vid_img(results, "vid_img_unflow_liteflownet", VD_FLOW, VD_SIZES, VD_ITERS, VD_PASSES)
+    timed("check_stacked_against_per_frame", check_stacked_against_per_frame, results)
+    vid_d = timed("run_vid_img_unflow_liteflownet", run_vid_img, results, "vid_img_unflow_liteflownet", VD_FLOW,
+                  VD_SIZES, VD_ITERS, VD_PASSES)
     shutil.rmtree(os.path.join(OUT, "vid_img_unflow_liteflownet"))
     for nets in VD_FLOW.split(","):
-        check_flow_against_cpu(results, nets)
-    ivid = run_img_vid(results)
-    profile_img_vid_window(results)
-    check_img_vid_against_cpu(results)
-    nca_train_counts, nca_gen_counts = run_nca(results)
-    check_nca_against_cpu(results)
-    cv_counts, cv_engine = run_clip_vqgan(results)
-    profile_clip_vqgan(results, cv_engine)
+        timed(f"check_flow_against_cpu {nets}", check_flow_against_cpu, results, nets)
+    ivid = timed("run_img_vid", run_img_vid, results)
+    timed("profile_img_vid_window", profile_img_vid_window, results)
+    timed("check_img_vid_against_cpu", check_img_vid_against_cpu, results)
+    nca_train_counts, nca_gen_counts = timed("run_nca", run_nca, results)
+    timed("check_nca_against_cpu", check_nca_against_cpu, results)
+    cv_counts, cv_engine = timed("run_clip_vqgan", run_clip_vqgan, results)
+    timed("profile_clip_vqgan", profile_clip_vqgan, results, cv_engine)
     del cv_engine
-    check_clip_vqgan_against_cpu(results)
-    rn_counts, rn_engine = run_clip_vqgan(results, "clip_vqgan_rn50", "RN50", RN_ITERS)
-    profile_clip_vqgan(results, rn_engine, "profile_clip_vqgan_rn50")
+    timed("check_clip_vqgan_against_cpu", check_clip_vqgan_against_cpu, results)
+    rn_counts, rn_engine = timed("run_clip_vqgan_rn50", run_clip_vqgan, results, "clip_vqgan_rn50", "RN50", RN_ITERS)
+    timed("profile_clip_vqgan_rn50", profile_clip_vqgan, results, rn_engine, "profile_clip_vqgan_rn50")
     del rn_engine
-    check_clip_vqgan_against_cpu(results, "RN50", "clip_vqgan_rn50_vs_cpu")
-    check_clip_embeddings_against_cpu(results)
-    cvs_counts = run_clip_video_style(results)
+    timed("check_clip_vqgan_rn50_against_cpu", check_clip_vqgan_against_cpu, results, "RN50",
+          "clip_vqgan_rn50_vs_cpu")
+    timed("check_clip_embeddings_against_cpu", check_clip_embeddings_against_cpu, results)
+    cvs_counts = timed("run_clip_video_style", run_clip_video_style, results)
     shutil.rmtree(os.path.join(OUT, "clip_video_style"))
-    sim_counts = run_similarity(results)
+    sim_counts = timed("run_similarity", run_similarity, results)
     shutil.rmtree(os.path.join(OUT, "similarity"))
-    fid_counts = run_fidelity(results)
-    space_counts = run_space(results)
-    frames_counts = run_frames(results)["frames2"]
-    vid_mesh_counts = run_vid_mesh(results)
-    img_vid_mesh_counts = run_img_vid_mesh(results)
-    nin_counts = run_nin_space(results)
-    vqgan_counts = run_vqgan_space(results)
-    drive_flags(results)
-    check_determinism(results)
-    run_tuner(results)  # last: its probes take the card's memory to its limit
+    fid_counts = timed("run_fidelity", run_fidelity, results)
+    space_counts = timed("run_space", run_space, results)
+    frames_counts = timed("run_frames", run_frames, results)["frames2"]
+    vid_mesh_counts = timed("run_vid_mesh", run_vid_mesh, results)
+    img_vid_mesh_counts = timed("run_img_vid_mesh", run_img_vid_mesh, results)
+    nin_counts = timed("run_nin_space", run_nin_space, results)
+    vqgan_counts = timed("run_vqgan_space", run_vqgan_space, results)
+    tensor_counts = timed("run_tensor", run_tensor, results)
+    timed("drive_flags", drive_flags, results)
+    timed("check_determinism", check_determinism, results)
+    timed("run_tuner", run_tuner, results)  # last: its probes take the card's memory to its limit
     # launches: each path's own count, read right after it ran from zero
     paths = {"img_img": img, "vid_img": vid, "vid_img_unflow_liteflownet": vid_d, "img_vid": ivid,
              "nca_train": nca_train_counts, "nca_gen": nca_gen_counts, "clip_vqgan": cv_counts,
              "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts,
              "fidelity": fid_counts, "space": space_counts, "frames": frames_counts, **vid_mesh_counts,
-             **img_vid_mesh_counts, **nin_counts, "vqgan_space2": vqgan_counts}
+             **img_vid_mesh_counts, **nin_counts, "vqgan_space2": vqgan_counts, **tensor_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

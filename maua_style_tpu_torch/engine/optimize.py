@@ -43,8 +43,16 @@ of the mesh (``parallel.mesh_rows``: one device, or with "space" too a
 row of bands), each row with its own copy of the extractor and the style
 targets and its own stacked step, the host issuing every row's iteration
 in turn.  The per-frame and chained passes run on the first row, as JAX's
-frames-stripped programs do.  The "tensor" axis raises
-``NotImplementedError`` naming its ROADMAP item.
+frames-stripped programs do.  On a "tensor" axis img_img's pastiche
+(``optimize``) is cut into (band, share) pieces of contiguous channel
+shares on the first "frames" row's grid (``parallel.mesh_grid``; one band
+without "space"): each convolution splits its contraction dim
+(``spatial.conv_pieces``), each style Gram is assembled from its blocks
+(``ops.gram.channel_gram``: K1 on each share's diagonal block), and the
+optimiser state is kept piece by piece; the results, snapshots and
+run-states are gathered to the single-device layout.  vid_img's passes and
+img_vid's windows on a "tensor" axis raise ``NotImplementedError`` naming
+their ROADMAP items (18e2, 18e3).
 
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
 circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
@@ -61,6 +69,7 @@ ported.
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 from typing import Any, Callable, Sequence
@@ -84,7 +93,7 @@ from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
-from ..parallel import build_mesh, frame_shards, mesh_rows, sharding_for, spatial, window_shares
+from ..parallel import build_mesh, channel_shares, frame_shards, mesh_grid, sharding_for, spatial, window_shares
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
@@ -152,8 +161,6 @@ class StyleEngine:
         self.sharding = sharding_for(mesh)
         _, tensor_axis, space_axis, _ = self.sharding.spec if self.sharding else (None,) * 4
         if self.sharding is not None:
-            if tensor_axis:
-                raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e")
             device = mesh.devices[0]
             for d in mesh.devices:
                 resolve_device(d)
@@ -161,11 +168,19 @@ class StyleEngine:
         self.device = resolve_device(device)
         self.loss_cfg = loss_cfg
         self.spec = truncate_spec(spec, loss_cfg.all_layers)
-        # "space": the bands' devices (the first row's with a "frames" axis
-        # too) and the rows a band boundary is a multiple of (the product of
-        # the spec's strides in H, ``spatial.band_geometry``)
-        self.band_devices = list(mesh_rows(mesh)[0]) if space_axis else None
+        # "space" and "tensor": the first "frames" row as a (band, share)
+        # grid (``parallel.mesh_grid``), the bands' devices (share 0's), the
+        # channel shares, and the rows a band boundary is a multiple of (the
+        # product of the spec's strides in H, ``spatial.band_geometry``)
+        self.grid = mesh_grid(mesh) if space_axis or tensor_axis else None
+        self.band_devices = [row[0] for row in self.grid] if space_axis else None
+        self.shares = len(self.grid[0]) if tensor_axis else 1
         self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
+        if self.shares > 1:
+            # every layer's channels, the pastiche's 3 first, in non-empty shares
+            channel_shares(min(self.spec.in_ch, *(l.out_ch for l in self.spec.conv_layers)), self.shares)
+            if any(l.kind == "softmax" for l in self.spec.layers):
+                raise NotImplementedError(f"mesh {mesh.axes}: a softmax over channel shares is not split")
         self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
         self.optimizer_name = optimizer
         self.learning_rate = learning_rate
@@ -184,8 +199,10 @@ class StyleEngine:
         return self.extractor(x.to(self.compute_dtype), layers)
 
     def _extract_bands(self, bands: Sequence[torch.Tensor], layers: Sequence[str]) -> dict[str, list]:
+        """The activations of row bands, or on a "tensor" axis of (band,
+        share) pieces ({layer: [pieces]}, share-major)."""
         extractors = [self._replica((b.device,)).extractor for b in bands]
-        return spatial.banded_forward(extractors, [b.to(self.compute_dtype) for b in bands], layers)
+        return spatial.banded_forward(extractors, [b.to(self.compute_dtype) for b in bands], layers, self.shares)
 
     def _replica(self, row: tuple) -> "StyleEngine":
         """This engine's copy on a row of devices (one band's device, or a
@@ -208,12 +225,13 @@ class StyleEngine:
 
     def content_targets(self, content) -> dict:
         """The content activations of a (1, H, W, 3) image; on a "space"
-        mesh a list of each band's, captured band by band."""
+        mesh a list of each band's, captured band by band (on a "tensor"
+        axis each piece's)."""
         return self._content_targets(to_nchw(content, self.device))
 
     def _content_targets(self, x: torch.Tensor) -> dict:
         """``content_targets`` of a (B, 3, H, W) tensor on the device."""
-        if not self.band_devices:
+        if not self.grid:
             return capture_content_targets(self._extract, x, self.loss_cfg)
         split, _ = self._band_layout(x.shape)
         with torch.no_grad():
@@ -261,12 +279,12 @@ class StyleEngine:
             return ()
         scale = []
         for l, t in targets.get("content", {}).items():
-            scale.append((f"content:{l}", 1.0 / max(_whole_shape(t))))
+            scale.append((f"content:{l}", 1.0 / max(_whole_shape(t, self.shares))))
         for l, t in targets.get("style", {}).items():
             scale.append((f"style:{l}", 1.0 / max(t.shape)))
         temporal = targets.get("temporal")
         if temporal is not None:
-            scale.append(("temporal", 1.0 / max(_whole_shape(temporal["target"]))))
+            scale.append(("temporal", 1.0 / max(_whole_shape(temporal["target"], self.shares))))
         return tuple(scale)
 
     # -- the optimisation loop ---------------------------------------------
@@ -290,8 +308,9 @@ class StyleEngine:
         """``n_iters`` steps, a generator that yields after each; returns
         (pastiche, opt_state, (n_iters, n_losses) log).
 
-        A list ``pastiche`` is a banded one ("space" mesh): the bands' forward
-        and ``evaluate_banded_losses``, the optimiser over the bands.
+        A list ``pastiche`` is a banded one ("space" mesh; on a "tensor" axis
+        its (band, share) pieces): the bands' forward and
+        ``evaluate_banded_losses``, the optimiser over the pieces.
 
         ``frames``: the pastiche (or each band) stacks independent frames
         (vid_img's first pass, ``optimize_frames``); the losses are each
@@ -333,7 +352,8 @@ class StyleEngine:
             p, assemble = pastiche, _same
             banded = isinstance(pastiche, list)
             extract = self._extract_bands if banded else self._extract
-            evaluate = evaluate_frame_losses if frames else evaluate_banded_losses if banded else evaluate_losses
+            evaluate = (evaluate_frame_losses if frames else
+                        functools.partial(evaluate_banded_losses, shares=self.shares) if banded else evaluate_losses)
 
             def loss_of(p):
                 return evaluate(p, extract(p, cfg.all_layers), targets, cfg, scale)
@@ -485,6 +505,9 @@ class StyleEngine:
         """
         if transfer_type not in ("img_img", "vid_img", "img_vid"):
             raise ValueError(f"unknown transfer_type {transfer_type!r}")
+        if transfer_type != "img_img":
+            self._img_img_only(*{"vid_img": ("vid_img's passes", "18e2"),
+                                 "img_vid": ("img_vid's windows", "18e3")}[transfer_type])
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         targets = {"content": self.content_targets(content)}
@@ -536,13 +559,20 @@ class StyleEngine:
     def _band_layout(self, shape) -> tuple[Callable, Callable]:
         """(split, gather) of a (B, C, H, W) pastiche-sized tensor, or of a
         flat state entry, between the single-device layout and the row
-        bands of a "space" mesh; both the identity without one."""
-        if not self.band_devices:
+        bands of a "space" mesh, or the (band, share) pieces of a "tensor"
+        axis (``spatial.split_pieces``); both the identity without one."""
+        if not self.grid:
             return _same, _same
         _, c, h, w = shape
-        heights = spatial.band_rows(h, len(self.band_devices), self.band_align, self.spec)
-        return (lambda x: spatial.split_rows(x, heights, self.band_devices, c, w),
-                lambda x: spatial.gather_rows(x, heights, self.device, c, w))
+        heights = spatial.band_rows(h, len(self.grid), self.band_align, self.spec) if len(self.grid) > 1 else [h]
+        return (lambda x: spatial.split_pieces(x, heights, self.grid, c, w),
+                lambda x: spatial.gather_pieces(x, heights, self.shares, self.device, c, w))
+
+    def _img_img_only(self, what: str, item: str) -> None:
+        """Raises ``NotImplementedError`` on a "tensor" axis: only img_img's
+        ``optimize`` splits channels; ``what`` on it is ROADMAP ``item``."""
+        if self.shares > 1:
+            raise NotImplementedError(f"mesh {self.mesh.axes}: {what} on the 'tensor' axis are ROADMAP item {item}")
 
     def _optimize_windows(self, targets, styles, blend_weights, init, num_iters, gfw, avg_frame_window,
                           save_callback, run_checkpoint, loop) -> np.ndarray:
@@ -746,6 +776,7 @@ class StyleEngine:
         Returns ``(pastiche (1, 3, h, w), display (h, w, 3) uint8)``, both
         on the device; ``last_loss_log`` is the (num_iters, n_losses) log,
         also on the device."""
+        self._img_img_only("vid_img's passes", "18e2")
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
@@ -819,6 +850,7 @@ class StyleEngine:
         to the first device."""
         if init_mode not in ("content", "random"):
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
+        self._img_img_only("vid_img's passes", "18e2")
         contents_u8 = np.asarray(contents_u8)
         seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
@@ -925,10 +957,12 @@ def _same(x):
     return x
 
 
-def _whole_shape(t) -> tuple[int, ...]:
-    """A target's shape, or for a banded one (a list) the whole image's."""
+def _whole_shape(t, shares: int = 1) -> tuple[int, ...]:
+    """A target's shape, or for a banded one (a list; of ``shares`` channel
+    shares, share-major) the whole image's."""
     if isinstance(t, list):
-        return (*t[0].shape[:2], sum(x.shape[2] for x in t), t[0].shape[3])
+        cols = spatial.columns(t, shares)
+        return (t[0].shape[0], sum(col[0].shape[1] for col in cols), sum(x.shape[2] for x in cols[0]), t[0].shape[3])
     return tuple(t.shape)
 
 

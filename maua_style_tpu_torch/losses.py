@@ -21,7 +21,8 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
   cut into row bands, its own ``evaluate_banded_losses``).
 - ``evaluate_banded_losses``: a pastiche cut into row bands over a
   "space" mesh (img_img, vid_img's frames), the same values from per-band
-  sums.
+  sums; on a "tensor" axis too (img_img) each band cut into channel
+  shares, the values from per-piece sums and the Gram from its blocks.
 - ``evaluate_window_losses``: an img_vid window laid out on a mesh, shares
   of frames each cut into row bands, the same values as ``evaluate_losses``
   of the whole window.
@@ -38,8 +39,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from .ops.gram import banded_gram, batch_gram, video_gram, video_gram_blocks
-from .parallel.spatial import sum_on
+from .ops.gram import banded_gram, batch_gram, channel_gram, video_gram, video_gram_blocks
+from .parallel.spatial import columns, sum_on
 
 
 class _ScaleGradients(torch.autograd.Function):
@@ -303,10 +304,16 @@ def banded_tv_loss(bands) -> torch.Tensor:
     return sum_on(bands[0].device, [tv_loss(x) for x in bands] + across)
 
 
-def _banded_norm_gram(bands, cfg: LossConfig) -> torch.Tensor:
-    """Per-frame Grams of a banded stack / each frame's whole nelement."""
-    rows = sum(x.shape[2] for x in bands)
-    return banded_gram(bands, cfg.use_covariance) / (bands[0].shape[1] * rows * bands[0].shape[3])
+def _banded_norm_gram(bands, cfg: LossConfig, shares: int = 1) -> torch.Tensor:
+    """Per-frame Grams of a banded stack / each frame's whole nelement;
+    with ``shares`` > 1, the (1, C, C) Gram of one image's (band, share)
+    pieces (``channel_gram``) / the whole layer's nelement, C the sum of
+    the shares' channels."""
+    cols = columns(bands, shares)
+    rows = sum(x.shape[2] for x in cols[0])
+    channels = sum(col[0].shape[1] for col in cols)
+    gram = banded_gram(bands, cfg.use_covariance) if shares == 1 else channel_gram(cols, cfg.use_covariance)
+    return gram / (channels * rows * bands[0].shape[3])
 
 
 def _banded_mse(xs, ts) -> torch.Tensor:
@@ -324,6 +331,7 @@ def evaluate_banded_losses(
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
     grams: dict[str, torch.Tensor] | None = None,
+    shares: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``evaluate_losses`` of one (1, 3, H, W) pastiche cut into row bands
     (``parallel/spatial.py``; a "space" mesh): ``acts``, the content
@@ -334,7 +342,14 @@ def evaluate_banded_losses(
     the pairs across the boundaries, the temporal MSE of pastiche·weights
     against the warped target.  Gradient normalisation then acts on each
     term's one scalar, as it does unbanded.  ``grams``: the style layers'
-    normalised Grams of ``acts``, where the caller has them."""
+    normalised Grams of ``acts``, where the caller has them.
+
+    ``shares`` > 1 (a "tensor" axis): ``bands``, ``acts`` and the content
+    targets hold (band, share) pieces, share-major, each band cut into
+    contiguous channel shares: the content MSE sums every piece, the style
+    MSE is the assembled Gram's (``channel_gram``: K1 on each share's
+    diagonal block) against the whole target, and TV sums each share's
+    column of bands."""
     dev = bands[0].device
     scale = strength_scale or {}
     zero = torch.zeros((), dtype=torch.float32, device=dev)
@@ -353,12 +368,12 @@ def evaluate_banded_losses(
         strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
         v = zero
         if l in style_targets:
-            g = grams[l] if grams is not None else _banded_norm_gram(acts[l], cfg)
+            g = grams[l] if grams is not None else _banded_norm_gram(acts[l], cfg, shares)
             v = _term(_mse(g[0], style_targets[l]), strength, 1, cfg.normalize_gradients)
         values.append(v)
 
     if cfg.tv_weight > 0:
-        values.append(cfg.tv_weight * banded_tv_loss(bands))
+        values.append(cfg.tv_weight * sum_on(dev, [banded_tv_loss(col) for col in columns(bands, shares)]))
     if cfg.temporal_weight > 0:
         strength = cfg.temporal_weight * scale.get("temporal", 1.0)
         v = zero

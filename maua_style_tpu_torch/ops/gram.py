@@ -29,6 +29,12 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
   ``torch.matmul`` on share i's device after copying Fⱼ there (JAX computes
   ``video_gram`` as a ``dot_general`` outside any Pallas kernel,
   ops/gram.py:96-104); the block below is its transpose.
+- ``channel_gram``: the Gram of one image whose channels are cut into
+  shares (the "tensor" axis, ``parallel.channel_shares``), each share in
+  row bands: the same blocks, with one frame a share's window view being
+  its own (1, C_t, N) features; K1 on each band of each diagonal block,
+  plain products off the diagonal (JAX's default Gram is a
+  ``dot_general``, losses.py:42, 70-75).
 """
 
 from __future__ import annotations
@@ -282,6 +288,18 @@ def shared_video_gram(shares, use_covariance: bool = False) -> torch.Tensor:
     return torch.cat(rows)
 
 
+def channel_gram(shares, use_covariance: bool = False) -> torch.Tensor:
+    """The (1, C, C) f32 Gram of one image cut into channel shares, each a
+    list of its row bands ((1, C_t, h_j, W) each; every share has the same
+    band heights), on the first share's device: ``shared_video_gram`` of
+    the shares.  Each diagonal block C_t × C_t is the share's bands' K1
+    Grams summed on its first device, each block above it the bands' plain
+    products (``_cross_block``) summed there, the blocks below their
+    transposes.  ``use_covariance`` centres each channel by its mean over
+    every band."""
+    return shared_video_gram(shares, use_covariance)[None]
+
+
 def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
     """Gram of a single frame: (C, H, W) or (1, C, H, W) -> (C, C)
     (without the /nelement normalisation; callers divide)."""
@@ -291,4 +309,4 @@ def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:
 
 
 __all__ = ["gram", "gram_reference", "gram_splits", "batch_gram", "banded_gram", "video_gram", "banded_video_gram",
-           "video_gram_blocks", "shared_video_gram", "gram_matrix"]
+           "video_gram_blocks", "shared_video_gram", "channel_gram", "gram_matrix"]

@@ -12,7 +12,9 @@ img_img, vid_img's frames and img_vid's windows), "frames" shares a stacked
 batch of independent frames out to the rows of the mesh (vid_img's first
 pass, ``StyleEngine.optimize_frames``) and an img_vid window's frames
 (``window_shares``), each row one frames index and all its "space"
-devices; "tensor" (channels) is not ported.
+devices; "tensor" cuts img_img's channels into shares (``channel_shares``),
+each share's column of bands on its own devices (``mesh_grid``: a band ×
+share grid of the first "frames" row).
 """
 
 from __future__ import annotations
@@ -105,6 +107,44 @@ def mesh_rows(mesh: Mesh) -> list[tuple[torch.device, ...]]:
                   for idx in itertools.product(*(range(sizes[i]) for i in others)))
             for r in range(sizes[f])]
 
+
+def mesh_grid(mesh: Mesh) -> list[tuple[torch.device, ...]]:
+    """The first "frames" row's devices as a (band, share) grid: ``grid[i][t]``
+    holds band i ("space" index i) of channel share t ("tensor" index t),
+    read row-major for any axis order; one band without a "space" axis, one
+    share without a "tensor" axis.  Unlike ``mesh_rows``, which flattens
+    every axis but "frames" into one row, it never reads a "tensor" device
+    as a band."""
+    sizes = mesh.shape
+    strides = {a: math.prod(s for _, s in mesh.axes[i + 1 :]) for i, (a, _) in enumerate(mesh.axes)}
+    return [tuple(mesh.devices[i * strides.get("space", 0) + t * strides.get("tensor", 0)]
+                  for t in range(sizes.get("tensor", 1)))
+            for i in range(sizes.get("space", 1))]
+
+
+def channel_shares(channels: int, shares: int) -> list[slice]:
+    """``channels`` cut into ``shares`` contiguous shares, as even as possible
+    with the larger shares first (3 on tensor:2 give 2 + 1, 64 on tensor:3
+    22 + 21 + 21), as JAX's GSPMD splits an uneven channel dim.  Raises
+    ``ValueError`` naming the axis where a share would be empty."""
+    if shares > channels:
+        raise ValueError(f"a 'tensor' axis of {shares} leaves a share of {channels} channels empty: "
+                         f"the axis must not exceed the fewest channels of any layer ({channels})")
+    return _even_cuts(channels, shares)
+
+
+def _even_cuts(n: int, k: int) -> list[slice]:
+    """range(n) cut into k contiguous slices, as even as possible, the
+    larger first; some are empty where n < k."""
+    per, extra = divmod(n, k)
+    out, start = [], 0
+    for i in range(k):
+        size = per + (i < extra)
+        out.append(slice(start, start + size))
+        start += size
+    return out
+
+
 def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[tuple[torch.device, ...], slice]] | None:
     """A stacked batch of ``batch`` independent frames split over the plan's
     "frames" axis: (row, frames) per row of the mesh (``mesh_rows``: one
@@ -130,14 +170,8 @@ def window_shares(sharding: Sharding, t_w: int) -> list[tuple[tuple[torch.device
     idle); without a "frames" axis the one share is every frame on the
     mesh's one row."""
     rows = mesh_rows(sharding.mesh) if sharding.spec[_DIMS["frames"]] == "frames" else mesh_rows(sharding.mesh)[:1]
-    per, extra = divmod(t_w, len(rows))
-    out, start = [], 0
-    for i, row in enumerate(rows):
-        n = per + (i < extra)
-        out.append((row, slice(start, start + n)))
-        start += n
-    return out
+    return list(zip(rows, _even_cuts(t_w, len(rows))))
 
 
-__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "frame_shards",
-           "window_shares"]
+__all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "mesh_grid",
+           "channel_shares", "frame_shards", "window_shares"]

@@ -28,6 +28,15 @@ exchange is written out here).
 - **Halo exchange.** ``halo_pad`` copies the neighbours' edge rows to this
   band's device (forward) and sends their gradient back into those rows
   (backward).
+- **Channel shares** (the "tensor" axis, ``parallel.mesh_grid``): each band
+  is further cut into contiguous channel shares (``channel_shares``), one
+  piece per (band, share), share-major.  A convolution splits its
+  contraction dim as JAX's GSPMD does (``conv_pieces``): each piece
+  convolves its own input channels with their slice of the weights, band
+  i's partial outputs are summed on each output share's device (a
+  reduce-scatter), and the bias is added once, after the sum; ReLUs and
+  pools act on each piece, and each share's column of bands exchanges halo
+  rows.
 
 The optimiser state of a banded pastiche is kept band by band (lists of
 tensors, ``engine/lbfgs.py``); ``split_rows`` and ``gather_rows`` move a
@@ -48,7 +57,7 @@ import torch.nn.functional as F
 
 from ..models.extractor import ExtractorSpec, Layer, pool_layer, pool_out_len
 from ..models.vqgan import Hooks
-from .mesh import mesh_rows, sharding_for
+from .mesh import channel_shares, mesh_grid, sharding_for
 
 
 class BandStep(NamedTuple):
@@ -213,18 +222,72 @@ def conv_bands(convs: Sequence, xs: Sequence[torch.Tensor]) -> list[torch.Tensor
             for x, m in zip(with_halo(xs, p, k - s - p, p), convs)]
 
 
-def banded_forward(extractors: Sequence, bands: Sequence[torch.Tensor], wanted: Sequence[str]) -> dict[str, list]:
+def columns(pieces: Sequence, shares: int) -> list[list]:
+    """(band, share) pieces, share-major, grouped by channel share: each
+    share's column of bands, in band order."""
+    n = len(pieces) // shares
+    return [list(pieces[t * n : (t + 1) * n]) for t in range(shares)]
+
+
+def share_weight(conv, ch: slice) -> torch.Tensor:
+    """``conv``'s weights for the input channels ``ch``, W[:, ch], as a
+    contiguous copy kept on the module (one per device: each device has its
+    own module) and made again once the weights change."""
+    w = conv.weight
+    stamp = (w.data_ptr(), w._version)
+    cache = conv.__dict__.setdefault("_share_weights", {})
+    key = (ch.start, ch.stop)
+    if key not in cache or cache[key][0] != stamp:
+        cache[key] = (stamp, w[:, ch].contiguous())
+    return cache[key][1]
+
+
+def conv_pieces(convs: Sequence, xs: Sequence[torch.Tensor], shares: int) -> list[torch.Tensor]:
+    """A convolution over (band, share) pieces, share-major (piece t·n + i:
+    band i of input share t; ``convs[k]`` the layer's ``nn.Conv2d`` on
+    piece k's device), split over its contraction dim as GSPMD splits it:
+    each piece convolves its own input channels with W[:, share]
+    (``share_weight``) on its device, without bias, after its share's
+    column of bands exchanged halo rows (``with_halo``; one band pads
+    itself); band i's partial outputs are then summed, output share by
+    output share, on that share's device (a reduce-scatter), and the bias
+    added once, after the sum.  Returns the output's pieces, share-major."""
+    n = len(xs) // shares
+    c = convs[0]
+    k, s, p = c.kernel_size[0], c.stride[0], c.padding[0]
+    ins, outs = channel_shares(c.in_channels, shares), channel_shares(c.out_channels, shares)
+    cols = columns(xs, shares)
+    pad = c.padding
+    if n > 1:
+        cols, pad = [with_halo(col, p, k - s - p, p) for col in cols], (0, c.padding[1])
+    partial = [[F.conv2d(x, share_weight(convs[t * n + i], ins[t]), None, c.stride, pad) for i, x in enumerate(col)]
+               for t, col in enumerate(cols)]
+    out = []
+    for u, ch in enumerate(outs):
+        for i in range(n):
+            m = convs[u * n + i]
+            y = sum_on(m.weight.device, [partial[t][i][:, ch] for t in range(shares)])
+            out.append(y if m.bias is None else y + m.bias[ch][:, None, None])
+    return out
+
+
+def banded_forward(extractors: Sequence, bands: Sequence[torch.Tensor], wanted: Sequence[str],
+                   shares: int = 1) -> dict[str, list]:
     """The feature net over bands: ``extractors[i]`` (an ``Extractor`` on
     band i's device; the same module where devices repeat) runs band i,
     and each convolution and pool first takes its halo rows from the
-    neighbours (``with_halo``).  Returns {layer: [band activations]} for
-    ``wanted``."""
+    neighbours (``with_halo``).  With ``shares`` > 1 ("tensor") ``bands``
+    are (band, share) pieces, share-major, each a share of the channels:
+    the convolutions are ``conv_pieces``, each share's column of bands
+    exchanges its own halo rows.  Returns {layer: [band (or piece)
+    activations]} for ``wanted``."""
     def conv(layer, xs):
-        return conv_bands([e.get_submodule(layer.name) for e in extractors], xs)
+        convs = [e.get_submodule(layer.name) for e in extractors]
+        return conv_bands(convs, xs) if shares == 1 else conv_pieces(convs, xs, shares)
 
     def pool(layer, xs):
         st = band_step(layer)
-        return [pool_layer(x, layer) for x in with_halo(xs, st.above, st.below, st.pad)]
+        return [pool_layer(x, layer) for col in columns(xs, shares) for x in with_halo(col, st.above, st.below, st.pad)]
 
     return extractors[0](list(bands), wanted, conv=conv, pool=pool)
 
@@ -275,14 +338,17 @@ def banded_decode(vqgan, z: torch.Tensor, mesh) -> torch.Tensor:
     has no strided layer), decoded band by band through ``conv_bands`` and
     ``group_norm_bands`` (the attention already gathers every band's keys),
     the image gathered on the first device.  The gradient reaches every band
-    of z.  Without a "space" axis the whole decode; a "tensor" axis raises."""
+    of z.  Without a "space" axis the whole decode; a "tensor" axis raises:
+    no JAX path decodes on a mesh (its clip CLIs run on one device), so no
+    reference splits the decoder's channels."""
     plan = sharding_for(mesh)
     _, tensor_axis, space_axis, _ = plan.spec if plan else (None,) * 4
     if tensor_axis:
-        raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e")
+        raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e on img_img's engine only; "
+                                  "no JAX path decodes on a mesh, so the banded decoder does not split channels")
     if not space_axis:
         return vqgan.decode(z)
-    devices = list(mesh_rows(mesh)[0])
+    devices = [row[0] for row in mesh_grid(mesh)]
     _, d, h, w = z.shape
     bands = split_rows(z, band_rows(h, len(devices), 1), devices, d, w)
     roots = ("post_quant_conv", "decoder")  # what decoding reads (not the encoder, nor the codebook)
@@ -322,6 +388,42 @@ def gather_rows(pieces: Sequence[torch.Tensor], heights: Sequence[int], device, 
     image = tuple(pieces[0].shape[-3:]) == (channels, heights[0], width)
     lead = pieces[0].shape[:-3] if image else pieces[0].shape[:-1]
     whole = torch.cat([p.reshape(*lead, channels, h, width).to(device) for p, h in zip(pieces, heights)], dim=-2)
+    return whole if image else whole.reshape(*lead, -1)
+
+
+def split_pieces(x: torch.Tensor, heights: Sequence[int], grid: Sequence[Sequence], channels: int,
+                 width: int) -> list:
+    """A pastiche-sized tensor (an image or a flat NCHW vector, as
+    ``split_rows`` takes) cut into (band, share) pieces on a grid
+    (``parallel.mesh_grid``: ``grid[i][t]`` band i of share t), share-major:
+    share t (``channel_shares``) cut into row bands on its column of the
+    grid; with one share, ``split_rows``."""
+    shares = channel_shares(channels, len(grid[0]))
+    if len(shares) == 1:
+        return split_rows(x, heights, [row[0] for row in grid], channels, width)
+    height = sum(heights)
+    image = x.dim() >= 3 and tuple(x.shape[-3:]) == (channels, height, width)
+    lead = x.shape[:-3] if image else x.shape[:-1]
+    whole = x.reshape(*lead, channels, height, width)
+    out = []
+    for t, ch in enumerate(shares):
+        bands = split_rows(whole[..., ch, :, :], heights, [row[t] for row in grid], ch.stop - ch.start, width)
+        out += bands if image else [b.reshape(*lead, -1) for b in bands]
+    return out
+
+
+def gather_pieces(pieces: Sequence[torch.Tensor], heights: Sequence[int], shares: int, device, channels: int,
+                  width: int) -> torch.Tensor:
+    """``split_pieces``' inverse: the pieces of ``shares`` channel shares
+    back to one tensor on ``device``."""
+    if shares == 1:
+        return gather_rows(pieces, heights, device, channels, width)
+    chs = channel_shares(channels, shares)
+    image = pieces[0].dim() >= 3 and tuple(pieces[0].shape[-3:]) == (chs[0].stop, heights[0], width)
+    lead = pieces[0].shape[:-3] if image else pieces[0].shape[:-1]
+    whole = torch.cat([gather_rows([p.reshape(*lead, ch.stop - ch.start, h, width) for p, h in zip(col, heights)],
+                                   heights, device, ch.stop - ch.start, width)
+                       for col, ch in zip(columns(pieces, shares), chs)], dim=-3)
     return whole if image else whole.reshape(*lead, -1)
 
 
@@ -399,5 +501,5 @@ def sum_on(device, values: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 __all__ = ["BandStep", "band_step", "band_geometry", "band_alignment", "band_rows", "level_heights", "halo_pad",
-           "with_halo", "conv_bands", "banded_forward", "group_norm_bands", "replica", "banded_decode", "split_rows",
-           "gather_rows", "WindowLayout", "sum_on"]
+           "with_halo", "conv_bands", "columns", "share_weight", "conv_pieces", "banded_forward", "group_norm_bands", "replica",
+           "banded_decode", "split_rows", "gather_rows", "split_pieces", "gather_pieces", "WindowLayout", "sum_on"]

@@ -15,7 +15,11 @@ TPU.
 
 Like the reference: sizes grow by sqrt(2) from the previous safe size and
 results are rounded to multiples of 32 (max-sizes.py:36-41, 96-97); the
-table maps "model,optimizer,devices" -> {safe max, true max}.
+table maps "model,optimizer,devices" -> {safe max, true max}.  With
+``devices`` = N > 1 the table is JAX's N-device one: the estimate of a
+step spatially sharded over N devices, or the measured probe on a
+"space:N" mesh of the first N distinct CUDA devices, its footprint the
+largest device's.
 
 Usage: python -m maua_style_tpu_torch.tuning.max_sizes [--method estimate|analysis]
 """
@@ -127,7 +131,8 @@ def estimate_step_bytes(model: str, optimizer: str, size: int, lbfgs_history: in
     size x size: the pastiche, the stored activations and the backward's
     buffers, the optimizer state, the weights and the runtime slack (JAX's
     terms, with ``CONSTANTS``).  ``devices`` > 1 is JAX's spatially sharded
-    step (the port runs one device; the term is kept for the formula).
+    step, a device's share of it (``/ devices * 1.03``: the bands' halo
+    rows and the replicated state).
     bf16 halves the activations and, as the engine stores them in bf16,
     the L-BFGS histories."""
     k = CONSTANTS
@@ -198,46 +203,74 @@ def chain_frames_per_program(
     return int(max(1, min(cap, budget // max(stacked_inputs, 1))))
 
 
+def probe_devices(devices: int = 1, device=None) -> list:
+    """The CUDA devices a probe of ``devices`` runs on: ``device`` (CUDA
+    device 0 unless another is named) for one; the first N distinct CUDA
+    devices for N > 1 (a mesh of one card repeated would read the sum of
+    the bands, not a device's peak).  Raises ``RuntimeError`` without a
+    CUDA device, or with fewer than N, as JAX's sharded probe does."""
+    import torch
+
+    from ..engine.optimize import resolve_device
+
+    if devices > 1:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < devices:
+            raise RuntimeError(f"need {devices} devices for the sharded probe, have {have} CUDA device(s)")
+        return [torch.device("cuda", i) for i in range(devices)]
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("the measured probe reads the CUDA allocator's peak: it needs a CUDA device")
+    return [dev]
+
+
 def measure_step(model: str, optimizer: str, size: int, compute_dtype: str = "bfloat16",
-                 lbfgs_method: str = "compact", device=None) -> dict | None:
+                 lbfgs_method: str = "compact", device=None, devices: int = 1) -> dict | None:
     """The measured probe: build the port's ``StyleEngine`` at size x size
     (``init_params`` seed 0; precision "default" for bf16, "highest" for
-    f32), capture its content and style targets and run two iterations.
+    f32), capture its content and style targets and run two iterations;
+    with ``devices`` = N > 1 on a "space:N" mesh of the first N distinct
+    CUDA devices (``probe_devices``), as JAX's probe shards its step.
     Returns the CUDA allocator's peaks above where they stood before, what
     tensors took (``allocated``, ``max_memory_allocated``) and what the
     allocator took from the device (``reserved``, ``max_memory_reserved``:
     its blocks' rounding and splits besides), and the device's free memory
-    before the probe (``free``, ``torch.cuda.mem_get_info``).  None when the
-    card runs out of memory.  Everything the probe made is freed before it
+    before the probe (``free``, ``torch.cuda.mem_get_info``); on N devices
+    each the largest device's (the least free memory).  None when a card
+    runs out of memory.  Everything the probe made is freed before it
     returns."""
     import torch
 
-    from ..engine.optimize import StyleEngine, resolve_device
+    from ..engine.optimize import StyleEngine
     from ..models import init_params, select_model
+    from ..parallel import build_mesh
 
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the measured probe reads the CUDA allocator's peak: it needs a CUDA device")
+    devs = probe_devices(devices, device)
     bf16 = _bf16(compute_dtype)
-    torch.cuda.synchronize(dev)
-    base, base_reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
-    free = torch.cuda.mem_get_info(dev)[0]
-    torch.cuda.reset_peak_memory_stats(dev)
+    base, base_reserved, free = {}, {}, {}
+    for dev in devs:
+        torch.cuda.synchronize(dev)
+        base[dev], base_reserved[dev] = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        free[dev] = torch.cuda.mem_get_info(dev)[0]
+        torch.cuda.reset_peak_memory_stats(dev)
     engine = None
     try:
         spec = select_model(model, "max")
         engine = StyleEngine(
             spec, init_params(spec, 0), _loss_cfg_for(model), optimizer=optimizer, learning_rate=1.0,
             lbfgs_method=lbfgs_method, compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-            precision="default" if bf16 else "highest", device=dev,
+            precision="default" if bf16 else "highest", device=devs[0],
+            mesh=build_mesh(devs, [("space", len(devs))]) if len(devs) > 1 else None,
         )
         rng = np.random.default_rng(0)
         content = rng.standard_normal((1, size, size, 3), dtype=np.float32) * 50
         style = np.ascontiguousarray(content[:, ::-1])
         engine.optimize(content, [style], content, 2)
-        torch.cuda.synchronize(dev)
-        return {"allocated": int(torch.cuda.max_memory_allocated(dev) - base),
-                "reserved": int(torch.cuda.max_memory_reserved(dev) - base_reserved), "free": int(free)}
+        for dev in devs:
+            torch.cuda.synchronize(dev)
+        return {"allocated": int(max(torch.cuda.max_memory_allocated(d) - base[d] for d in devs)),
+                "reserved": int(max(torch.cuda.max_memory_reserved(d) - base_reserved[d] for d in devs)),
+                "free": int(min(free.values()))}
     except torch.cuda.OutOfMemoryError:
         return None
     finally:
@@ -247,13 +280,19 @@ def measure_step(model: str, optimizer: str, size: int, compute_dtype: str = "bf
 
 
 def measure_step_bytes(model: str, optimizer: str, size: int, compute_dtype: str = "bfloat16",
-                       lbfgs_method: str = "compact", device=None) -> int | None:
+                       lbfgs_method: str = "compact", device=None, devices: int = 1, allocated: bool = False):
     """The measured search's probe: ``measure_step``'s ``reserved`` peak,
     what the allocator took from the device (held to the free memory), or
-    None when the card runs out of memory.  ``fit_constants`` fits the
-    ``allocated`` peaks that ``measure_step`` also returns."""
-    got = measure_step(model, optimizer, size, compute_dtype, lbfgs_method, device)
-    return None if got is None else got["reserved"]
+    None when a card runs out of memory.  ``allocated=True`` returns
+    (reserved, allocated): the search predicts the next size from what
+    tensors took, which grows as size², while the reserved peak levels off
+    under the free memory near the card's limit (the allocator hands back
+    its cached blocks and retries instead of failing).  ``fit_constants``
+    fits the ``allocated`` peaks too."""
+    got = measure_step(model, optimizer, size, compute_dtype, lbfgs_method, device, devices)
+    if got is None:
+        return None
+    return (got["reserved"], got["allocated"]) if allocated else got["reserved"]
 
 def fit_constants(rows, lbfgs_history: int = 100) -> dict:
     """``CONSTANTS`` fitted to measured peaks: ``rows`` of (model,
@@ -326,26 +365,45 @@ def hbm_bytes(device=None) -> int:
     return int(torch.cuda.get_device_properties(dev).total_memory)
 
 
-def search_budget_bytes(device=None) -> int:
+def search_budget_bytes(device=None, devices: int = 1) -> int:
     """The measured search's budget: the device's free memory at the
     search's start (``torch.cuda.mem_get_info``), after the caching
-    allocator has handed back the blocks it holds unused.  Unlike
-    ``total_memory`` it leaves out the CUDA context, the cuDNN and cuBLAS
-    handles and whatever the process keeps alive, so a size the search
-    calls safe also fits in a process that ran other work first.  The
-    search holds each probe's ``reserved`` peak to it: what the allocator
-    took from the device, its blocks' rounding and splits included.  A
-    CUDA device is required (CUDA device 0 unless another is named)."""
+    allocator has handed back the blocks it holds unused; on N devices the
+    least of theirs (``probe_devices``).  Unlike ``total_memory`` it leaves
+    out the CUDA context, the cuDNN and cuBLAS handles and whatever the
+    process keeps alive, so a size the search calls safe also fits in a
+    process that ran other work first.  The search holds each probe's
+    ``reserved`` peak to it: what the allocator took from the device, its
+    blocks' rounding and splits included.  A CUDA device is required (CUDA
+    device 0 unless another is named)."""
     import torch
 
-    from ..engine.optimize import resolve_device
-
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("the measured search's budget is a CUDA device's free memory: it needs a CUDA device")
+    try:
+        devs = probe_devices(devices, device)
+    except RuntimeError as e:
+        raise RuntimeError(f"the measured search's budget is a CUDA device's free memory: {e}") from None
     gc.collect()
     torch.cuda.empty_cache()
-    return int(torch.cuda.mem_get_info(dev)[0])
+    return int(min(torch.cuda.mem_get_info(d)[0] for d in devs))
+
+
+# the step up from the best fit while the fitted prediction stalls there and
+# no probe has failed yet: a quarter octave (the reference's ladder is sqrt(2))
+STALL_STEP = 2 ** 0.25
+
+
+def _boundary(fits, budget: int) -> float:
+    """The size at which the footprint the prediction follows reaches
+    ``budget``: affine in size² through the two largest of ``fits``
+    ((size, bytes) measured under budget), or through the largest and the
+    origin where there is one fit or the two do not rise."""
+    (s1, a1), *rest = sorted(fits, reverse=True)
+    if rest:
+        s0, a0 = rest[0]
+        alpha = (a1 - a0) / (s1 * s1 - s0 * s0)
+        if alpha > 0:
+            return math.sqrt(max(budget - (a1 - alpha * s1 * s1), 0.0) / alpha)
+    return s1 * math.sqrt(budget / max(a1, 1))
 
 
 def probe_max_sizes(
@@ -359,32 +417,55 @@ def probe_max_sizes(
     compute_dtype: str = "bfloat16",
     seed_table: dict | None = None,
 ) -> dict:
-    """Build the capacity table (reference max-sizes.py:59-111).
+    """Build the capacity table (reference max-sizes.py:59-111); ``devices``
+    = N > 1 sizes a step spatially sharded over N devices (JAX's N-device
+    table: the estimate's ``/ N * 1.03``, or the measured probe on N
+    distinct CUDA devices, which raises with fewer).
 
     The boundary search interpolates on the MEASURED footprint rather than
     bisecting on fit/no-fit: bytes(s) is nearly affine in s², so a
     quadratic model through the best fitting and smallest failing probes
     lands within a rung or two of the x32 boundary.  A probe that fails
-    without a footprint (out of memory) counts as over budget."""
-    if devices > 1:
-        raise NotImplementedError("multi-device probes are not ported yet (ROADMAP item 18g)")
+    without a footprint (out of memory) counts as over budget.
+
+    The measured probe's fit test is its ``reserved`` peak, but its
+    prediction follows the ``allocated`` one (``_boundary``, the nearest
+    rung): near the card's limit the reserved peak levels off under the
+    free memory while what tensors take still grows as size², and a
+    prediction from the reserved peak stalls on the best fit (it crept up
+    32 px a probe).  Where the prediction lands within one rung of the
+    best fit and no probe has failed yet, the next probe is
+    ``STALL_STEP`` (a quarter octave) above it.  Where a probe ran out of
+    memory no more than a rung below the fitted boundary, the next is the
+    boundary's rung (clamped inside the bracket), twice at most before a
+    bisection; a fitted boundary further past the failure (the model is
+    wrong there) bisects.  Wherever the footprint is monotone in size the
+    search ends on the same 32-px bracket as JAX's."""
+    if method == "analysis" and devices > 1:
+        probe_devices(devices)  # JAX's "need N devices for the sharded probe", before any probe
     if budget_bytes is not None:
         budget = budget_bytes
     else:  # the measured search runs in this process: what is free here; the estimate sizes a whole card
-        budget = search_budget_bytes() if method == "analysis" else hbm_bytes()
+        budget = search_budget_bytes(devices=devices) if method == "analysis" else hbm_bytes()
 
     def probe_bytes(model, optimizer, size):
-        """Footprint at ``size`` in bytes, or None if the probe failed
-        without reporting one (counts as over budget)."""
+        """(Footprint at ``size`` held to the budget, footprint the
+        prediction follows) in bytes, or None if the probe failed without
+        reporting one (counts as over budget).  A probe that reports one
+        number gives it for both."""
         try:
             if method == "estimate":
-                return estimate_step_bytes(model, optimizer, size, devices=devices, compute_dtype=compute_dtype)
-            return measure_step_bytes(model, optimizer, size, compute_dtype=compute_dtype)
+                b = estimate_step_bytes(model, optimizer, size, devices=devices, compute_dtype=compute_dtype)
+                return b, b
+            got = measure_step_bytes(model, optimizer, size, compute_dtype=compute_dtype, devices=devices,
+                                     allocated=True)
+            return got if got is None or isinstance(got, tuple) else (got, got)
         except Exception as e:  # a failed probe counts as over budget
             if verbose:
                 print(f"{model}+{optimizer}@{size}: probe error {str(e)[:200]}")
             return None
 
+    gib = 1024 ** 3
     table: dict[str, dict] = {}
     prev_safe = start_size
     for model in models:
@@ -394,14 +475,19 @@ def probe_max_sizes(
             size = max(size, 64)
             fit = None   # (size, bytes) — largest size measured under budget
             fail = None  # (size, bytes|None) — smallest size measured over
+            fits = []    # (size, predicted-from bytes) of every size measured under budget
             probed: set[int] = set()
+            guesses = 0  # the fitted boundary's rungs probed since the last bisection
             for _ in range(24):  # hard cap; typical combo needs 3-4 probes
                 probed.add(size)
-                b = probe_bytes(model, optimizer, size)
+                got = probe_bytes(model, optimizer, size)
+                b, a = got if got is not None else (None, None)
                 if verbose and method != "estimate":
-                    gib = f"{b / 1024 ** 3:.2f} GiB" if b is not None else "?"
-                    print(f"  {model}+{optimizer}@{size}: {gib}", flush=True)
+                    what = "?" if b is None else (f"reserved {b / gib:.2f} GiB, allocated {a / gib:.2f} GiB, "
+                                                  f"budget {budget / gib:.2f} GiB")
+                    print(f"  {model}+{optimizer}@{size}: {what}", flush=True)
                 if b is not None and b <= budget:
+                    fits.append((size, a))
                     if fit is None or size > fit[0]:
                         fit = (size, b)
                 else:
@@ -416,20 +502,25 @@ def probe_max_sizes(
                         break
                     size = max(_round32(fail[0] / math.sqrt(2)), 32)
                 elif fail is None:
-                    s1, b1 = fit
-                    pred = s1 * math.sqrt(budget / max(b1, 1))
-                    size = max(min(_round32(pred), 16352), s1 + 32)
+                    s1 = fit[0]
                     if s1 >= 16320:
                         break  # effectively unbounded
+                    pred = _round32(_boundary(fits, budget) + 16)  # the nearest rung
+                    size = pred if pred > s1 + 32 else _round32(s1 * STALL_STEP)  # stalled: step up
+                    size = max(min(size, 16352), s1 + 32)
                 else:
                     (s1, b1), (s2, b2) = fit, fail
+                    pred = _boundary(fits, budget)
                     if b2 is not None and s2 * s2 > s1 * s1:
                         alpha = (b2 - b1) / (s2 * s2 - s1 * s1)
                         beta = b1 - alpha * s1 * s1
                         val = (budget * 0.999 - beta) / alpha if alpha > 0 else -1.0
                         size = _round32(math.sqrt(val)) if val > 0 else _round32((s1 + s2) / 2)
+                        guesses = 0
+                    elif pred < s2 + 32 and guesses < 2:  # out of memory within a rung of the fitted boundary
+                        size, guesses = _round32(pred + 16), guesses + 1
                     else:
-                        size = _round32((s1 + s2) / 2)
+                        size, guesses = _round32((s1 + s2) / 2), 0
                     size = min(max(size, s1 + 32), s2 - 32)
                 if size in probed:  # model stalled on a probed rung: bisect
                     if fit and fail:
@@ -464,7 +555,10 @@ def main(argv=None):
                     help="estimate: the analytic footprint; analysis: a measured probe on the card")
     ap.add_argument("--models", default=",".join(DEFAULT_MODELS))
     ap.add_argument("--optimizers", default=",".join(DEFAULT_OPTIMIZERS))
-    ap.add_argument("--devices", type=int, default=1, help="one device only (multi-device probes are ROADMAP item 18g)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="N devices sharing each image in row bands (JAX's N-device table): the estimate's "
+                         "footprint / N * 1.03 anywhere; the measured probe on a space:N mesh of the first N "
+                         "distinct CUDA devices (it needs N cards)")
     ap.add_argument("--hbm_gb", type=float, default=None,
                     help="override the device memory budget (default: CUDA device 0's whole memory for "
                          "the estimate, its free memory for the measured search)")

@@ -2,12 +2,16 @@
 package's: with the port's constant table set to JAX's v5e literals the
 footprint formula is byte for byte JAX's, the boundary search over one
 fake bytes function gives equal tables, the frame sizing and the CLI's
-JSON are equal, and vid_img's chunk choices are JAX's.  Then the port's own
-fitted constants keep JAX's orderings, the refusals, and the measured
-probe's CPU and out-of-memory paths."""
+JSON are equal, and vid_img's chunk choices are JAX's; so are the N-device
+tables (``--devices``).  Then the port's own fitted constants keep JAX's
+orderings, the refusals, the measured probe's CPU and out-of-memory paths,
+its N-device probe (the largest device's peak; it needs N cards), and the
+search's convergence where the reserved peak levels off under the
+budget."""
 
 import argparse
 import json
+import os
 
 import pytest
 import torch
@@ -144,7 +148,7 @@ def test_cli_json_equals_jax(v5e, tmp_path, capsys):
     assert json.loads(got.read_text()) == json.loads(want.read_text())
 
 
-@pytest.mark.parametrize("argv, match", [(["--devices", "2"], "item 18"), (["--topology", "v5e:2x2"], "not ported")])
+@pytest.mark.parametrize("argv, match", [(["--topology", "v5e:2x2"], "not ported")])
 def test_refusals(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         ms.main(["--method", "estimate", "--hbm_gb", "16", "--out", str(tmp_path / "t.json"), *argv])
@@ -275,3 +279,162 @@ def test_search_budget_follows_free_memory(monkeypatch):
     assert entry["budget_gb"] == 30.0
     safe = entry["safe_max_size"]
     assert safe * safe * 1000 <= 30 * GIB < (safe + 32) ** 2 * 1000
+
+
+# -- N-device tables (--devices) -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("devices", [2, 4, 8])
+def test_estimate_devices_equal_jax(v5e, devices, tmp_path, capsys):
+    """The estimate's N-device table equals JAX's: the same keys
+    ("model,optimizer,N"), the same ``/ N * 1.03`` footprint, the CLI's JSON
+    byte for byte, and the default file name ``max-sizes-{gb}GB-{N}chip.json``
+    under the port's ``configs/``."""
+    kw = dict(models=ms.DEFAULT_MODELS, method="estimate", budget_bytes=16 * GIB, verbose=False, devices=devices)
+    got = ms.probe_max_sizes(**kw)
+    assert got == jax_ms.probe_max_sizes(**kw)
+    assert sorted(got) == sorted(f"{m},{o},{devices}" for m in ms.DEFAULT_MODELS for o in ms.DEFAULT_OPTIMIZERS)
+    one = ms.probe_max_sizes(**{**kw, "devices": 1})
+    assert all(got[f"{m},{o},{devices}"]["safe_max_size"] > one[f"{m},{o},1"]["safe_max_size"]
+               for m in ms.DEFAULT_MODELS for o in ms.DEFAULT_OPTIMIZERS)
+    port, jax_out = tmp_path / "port.json", tmp_path / "jax.json"
+    argv = ["--method", "estimate", "--hbm_gb", "16", "--devices", str(devices)]
+    ms.main([*argv, "--out", str(port)])
+    jax_ms.main([*argv, "--out", str(jax_out)])
+    assert port.read_bytes() == jax_out.read_bytes()
+    assert ms.default_table_path(16, devices) == os.path.join(ms.TABLE_DIR, f"max-sizes-16GB-{devices}chip.json")
+
+
+def test_sharded_probe_needs_n_cards(monkeypatch):
+    """The measured N-device probe raises ``RuntimeError`` with fewer than N
+    CUDA devices, before any probe (JAX's "need N devices for the sharded
+    probe"), on this CPU and with one card faked; it never repeats a card."""
+    with pytest.raises(RuntimeError, match="need 2 devices for the sharded probe"):
+        ms.probe_max_sizes(models=("vgg19",), optimizers=("adam",), method="analysis", devices=2, verbose=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="need 2 devices for the sharded probe"):
+        ms.measure_step("vgg19", "adam", 64, devices=2)
+    with pytest.raises(RuntimeError, match="need 4 devices"):
+        ms.probe_max_sizes(models=("vgg19",), optimizers=("adam",), method="analysis", devices=4,
+                           budget_bytes=GIB, verbose=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert ms.probe_devices(2) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_sharded_probe_reads_the_largest_device(monkeypatch):
+    """On N cards the probe builds its engine on a space:N mesh of the first
+    N distinct CUDA devices and reports the largest device's peaks (and the
+    least free memory), each above where that device stood before: the
+    CUDA allocator's per-device readings faked, the engine a stand-in."""
+    from maua_style_tpu_torch.engine import optimize as optimize_module
+
+    peak = {0: (5 * GIB, 6 * GIB), 1: (7 * GIB, 7 * GIB), 2: (4 * GIB, 9 * GIB)}
+    base = {0: GIB, 1: 0, 2: 0}
+    for name, fn in {"is_available": lambda: True, "device_count": lambda: 3, "synchronize": lambda d=None: None,
+                     "reset_peak_memory_stats": lambda d=None: None, "empty_cache": lambda: None,
+                     "memory_allocated": lambda d: base[d.index], "memory_reserved": lambda d: base[d.index],
+                     "max_memory_allocated": lambda d: peak[d.index][0] + base[d.index],
+                     "max_memory_reserved": lambda d: peak[d.index][1] + base[d.index],
+                     "mem_get_info": lambda d: ((70 - d.index) * GIB, 80 * GIB)}.items():
+        monkeypatch.setattr(torch.cuda, name, fn)
+    built = []
+
+    class Engine:
+        def __init__(self, *a, device=None, mesh=None, **k):
+            built.append((device, mesh))
+
+        def optimize(self, *a, **k):
+            pass
+
+    monkeypatch.setattr(optimize_module, "StyleEngine", Engine)
+    got = ms.measure_step("vgg19", "adam", 64, compute_dtype="float32", devices=3)
+    assert got == {"allocated": 7 * GIB, "reserved": 9 * GIB, "free": 68 * GIB}
+    device, mesh = built[0]
+    assert device == torch.device("cuda", 0)
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(3)) and mesh.axes == (("space", 3),)
+    assert ms.search_budget_bytes(devices=3) == 68 * GIB
+    assert ms.measure_step_bytes("vgg19", "adam", 64, devices=2, allocated=True) == (7 * GIB, 7 * GIB)
+
+
+# -- the measured search's convergence ------------------------------------------------------
+
+
+def _plateau(budget, per_px, oom_margin):
+    """The card's probes near its limit (VGG-19 f32 on an H100): tensors
+    take ``per_px`` bytes a pixel (Adam 2310, L-BFGS 4700, constant to 0.3%
+    from 2912² to the limit), the allocator reserves 20% more until that
+    reaches the free memory, then hands back its cached blocks and retries,
+    so the reserved peak levels off just under the budget; out of memory
+    where what tensors take passes the budget plus ``oom_margin`` (the
+    allocated peak is read above the process's own cached workspaces: on
+    the card a probe failed 0.2 GiB under the budget in one process and
+    fitted 0.05 GiB over it in another)."""
+    def step(model, optimizer, size, *_, **__):
+        a = per_px * size * size + 0.05 * GIB
+        if a > budget + oom_margin * GIB:
+            return None
+        return {"allocated": int(a), "reserved": int(min(1.2 * a, budget * (0.98 + 0.01 * (size // 32 % 2)), budget)),
+                "free": budget}
+    return step
+
+
+@pytest.mark.parametrize("budget_gib, per_px, oom_margin", [(76.34, 2310, -0.2), (78.46, 2310, -0.2),
+                                                            (76.34, 4700, -0.2), (40.0, 2310, -0.2),
+                                                            (76.17, 2310, 0.1), (76.17, 4700, 0.1)])
+def test_search_converges_where_reserved_levels_off(monkeypatch, budget_gib, per_px, oom_margin):
+    """Where the reserved peak levels off under the budget while what
+    tensors take still grows as size², the search brackets the size in at
+    most 6 probes (the parent's search, JAX's on the reserved peak, creeps
+    32 px a probe: 15 to 20 here), on the same 32-px bracket."""
+    budget = int(budget_gib * GIB)
+    step = _plateau(budget, per_px, oom_margin)
+    parent, port = [], []
+
+    def parent_probe(model, optimizer, size, **_):
+        parent.append(size)
+        got = step(model, optimizer, size)
+        return None if got is None else got["reserved"]
+
+    def port_probe(*a, **k):
+        port.append(a[2])
+        return step(*a)
+
+    monkeypatch.setattr(jax_ms, "_compiled_step_bytes", parent_probe)
+    monkeypatch.setattr(ms, "measure_step", port_probe)
+    kw = dict(models=("vgg19",), optimizers=("adam",), method="analysis", verbose=False, compute_dtype="float32",
+              budget_bytes=budget, start_size=4160)
+    want, got = jax_ms.probe_max_sizes(**kw), ms.probe_max_sizes(**kw)
+    assert got == want
+    assert len(port) <= 6 < len(parent), (port, parent)
+    entry = got["vgg19,adam,1"]
+    assert entry["true_max_size"] - entry["safe_max_size"] == 32
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_search_equals_jax_on_random_footprints(monkeypatch, seed):
+    """Wherever the footprint is monotone in size the search ends on JAX's
+    32-px bracket: random affine-in-size² footprints (slopes, intercepts,
+    budgets, start sizes), some running out of memory or raising above a
+    random size, 25 tables a seed."""
+    import random
+
+    rng = random.Random(seed)
+    for _ in range(25):
+        per = {o: rng.uniform(50, 5000) for o in ms.DEFAULT_OPTIMIZERS}
+        intercept = rng.uniform(0, 3e9)
+        oom, raise_above = (rng.choice([None, rng.randint(300, 12000)]) for _ in range(2))
+
+        def fake(model, optimizer, size, *_, **__):
+            if raise_above and size > raise_above:
+                raise RuntimeError("probe failed")
+            if oom and size > oom:
+                return None
+            return int(per[optimizer] * (1 + 0.1 * len(model)) * size * size + intercept)
+
+        monkeypatch.setattr(jax_ms, "_compiled_step_bytes", fake)
+        monkeypatch.setattr(ms, "measure_step_bytes", fake)
+        kw = dict(models=("vgg19", "nin"), optimizers=ms.DEFAULT_OPTIMIZERS, method="analysis", verbose=False,
+                  compute_dtype="float32", budget_bytes=rng.uniform(1, 100) * GIB,
+                  start_size=rng.choice([256, 512, 8192]))
+        assert ms.probe_max_sizes(**kw) == jax_ms.probe_max_sizes(**kw)
