@@ -43,16 +43,18 @@ of the mesh (``parallel.mesh_rows``: one device, or with "space" too a
 row of bands), each row with its own copy of the extractor and the style
 targets and its own stacked step, the host issuing every row's iteration
 in turn.  The per-frame and chained passes run on the first row, as JAX's
-frames-stripped programs do.  On a "tensor" axis img_img's pastiche
-(``optimize``) is cut into (band, share) pieces of contiguous channel
-shares on the first "frames" row's grid (``parallel.mesh_grid``; one band
-without "space"): each convolution splits its contraction dim
-(``spatial.conv_pieces``), each style Gram is assembled from its blocks
-(``ops.gram.channel_gram``: K1 on each share's diagonal block), and the
-optimiser state is kept piece by piece; the results, snapshots and
-run-states are gathered to the single-device layout.  vid_img's passes and
-img_vid's windows on a "tensor" axis raise ``NotImplementedError`` naming
-their ROADMAP items (18e2, 18e3).
+frames-stripped programs do.  On a "tensor" axis a pastiche (img_img's,
+a vid_img frame's or stack's) is cut into (band, share) pieces of
+contiguous channel shares on the first "frames" row's grid
+(``parallel.mesh_grid``; one band without "space"; a share past the last
+channel empty): each convolution splits its contraction dim
+(``spatial.conv_pieces``), each style layer's per-frame Grams are
+assembled from their blocks (``ops.gram.channel_gram``: K1 on each
+share's diagonal block over the stack), the temporal weights go to every
+share's device band by band, and the optimiser state is kept piece by
+piece; the results, snapshots and run-states are gathered to the
+single-device layout.  A "frames" row's replica runs on the row's own
+(space, tensor) mesh (``parallel.row_mesh``).
 
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
 circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
@@ -60,9 +62,12 @@ pastiche stays on the host, each window goes up, runs, and is scattered
 back.  Windows after the first freeze the frames earlier windows styled,
 by a gradient mask or, without run-state checkpoints, by the frozen-split
 runner (``_run``).  On a mesh each window's frames are shared out to the
-rows of a "frames" axis and cut into row bands on "space"
-(``_window_layout``; JAX shards the window's frames), the losses summed
-from the pieces (``losses.evaluate_window_losses``).  JAX's fused pyramid
+rows of a "frames" axis and cut into row bands on "space" and channel
+shares on "tensor" (``_window_layout``; JAX shards the window's frames and
+channels), the losses summed from the pieces
+(``losses.evaluate_window_losses``: the whole-window Gram by groups of
+frame share and channel share, against the target permuted once into
+group order).  JAX's fused pyramid
 program (``optimize_pyramid``) only saves TPU executable loads and is not
 ported.
 """
@@ -93,7 +98,8 @@ from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
 from ..ops.warp import grid_sample
-from ..parallel import build_mesh, channel_shares, frame_shards, mesh_grid, sharding_for, spatial, window_shares
+from ..parallel import (channel_shares, frame_shards, mesh_grid, mesh_rows, row_mesh, sharding_for, spatial,
+                        window_shares)
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
@@ -176,11 +182,8 @@ class StyleEngine:
         self.band_devices = [row[0] for row in self.grid] if space_axis else None
         self.shares = len(self.grid[0]) if tensor_axis else 1
         self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
-        if self.shares > 1:
-            # every layer's channels, the pastiche's 3 first, in non-empty shares
-            channel_shares(min(self.spec.in_ch, *(l.out_ch for l in self.spec.conv_layers)), self.shares)
-            if any(l.kind == "softmax" for l in self.spec.layers):
-                raise NotImplementedError(f"mesh {mesh.axes}: a softmax over channel shares is not split")
+        if self.shares > 1 and any(l.kind == "softmax" for l in self.spec.layers):
+            raise NotImplementedError(f"mesh {mesh.axes}: a softmax over channel shares is not split")
         self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
         self.optimizer_name = optimizer
         self.learning_rate = learning_rate
@@ -205,19 +208,22 @@ class StyleEngine:
         return spatial.banded_forward(extractors, [b.to(self.compute_dtype) for b in bands], layers, self.shares)
 
     def _replica(self, row: tuple) -> "StyleEngine":
-        """This engine's copy on a row of devices (one band's device, or a
-        "frames" share of the mesh, its "space" devices): the extractor's
-        weights and the settings, on a row of several a "space" mesh of its
-        own; the engine itself where it already runs."""
+        """This engine's copy on a row of devices (one piece's device, or a
+        "frames" row of the mesh, ``parallel.mesh_rows``): the extractor's
+        weights and the settings, on a row of several the row's own mesh
+        (``parallel.row_mesh``: its "space" and "tensor" axes, so a row of
+        frames:2,tensor:2 splits channels, not rows); the engine itself
+        where it already runs."""
         row = tuple(torch.device(d) for d in row)
-        if row in ((self.device,), tuple(self.band_devices or ())):
+        own = tuple(self.band_devices or ()) if self.shares == 1 else mesh_rows(self.mesh)[0]
+        if row in ((self.device,), own):
             return self
         if row not in self._replicas:
             self._replicas[row] = StyleEngine(
                 self.spec, self.extractor.state_dict(), self.loss_cfg, optimizer=self.optimizer_name,
                 learning_rate=self.learning_rate, lbfgs_history=self.lbfgs_history, lbfgs_method=self.lbfgs_method,
                 precision=self.precision, normalize_weights=self.normalize_weights, compute_dtype=self.compute_dtype,
-                device=row[0], mesh=build_mesh(row, [("space", len(row))]) if len(row) > 1 else None,
+                device=row[0], mesh=row_mesh(self.mesh, row) if len(row) > 1 else None,
             )
         return self._replicas[row]
 
@@ -241,9 +247,18 @@ class StyleEngine:
     def _temporal_targets(self, warped: torch.Tensor, weights: torch.Tensor | None) -> dict:
         """The temporal target, a whole warped image (a flow moves pixels
         across band boundaries, so the warp never runs band by band), and
-        its (1, 1, H, W) reliability weights; on a "space" mesh each then
-        cut into bands."""
-        return {k: self._band_layout(v.shape)[0](v) for k, v in capture_temporal_targets(warped, weights).items()}
+        its (1, 1, H, W) reliability weights; on a mesh the target then cut
+        as the pastiche is (``_band_layout``), and the weights, which every
+        channel reads, into row bands only, band i copied to each channel
+        share's device (``spatial.split_bands_shared``)."""
+        t = capture_temporal_targets(warped, weights)
+        if not self.grid:
+            return t
+        _, _, h, w = warped.shape
+        out = {"target": self._band_layout(warped.shape)[0](t["target"])}
+        if "weights" in t:
+            out["weights"] = spatial.split_bands_shared(t["weights"], self._band_heights(h), self.grid, 1, w)
+        return out
 
     def style_targets(self, styles: Sequence, blend_weights: Sequence[float]) -> dict[str, torch.Tensor]:
         # content-addressed cache of the blended Gram targets
@@ -334,7 +349,7 @@ class StyleEngine:
         if window is not None:
             p, loss_of, assemble = self._window_pieces(window, pastiche, targets, scale, frozen)
             if mask is not None:  # the masked runner: every piece moves
-                mask = [mask[part].to(d) for row, part in window.shares for d in row]
+                mask = [mask[part].to(d) for (_, part), devs in zip(window.shares, window.devices()) for d in devs]
         elif frozen is not None:
             fo, eo = frozen
             t_w = pastiche.shape[0]
@@ -352,7 +367,7 @@ class StyleEngine:
             p, assemble = pastiche, _same
             banded = isinstance(pastiche, list)
             extract = self._extract_bands if banded else self._extract
-            evaluate = (evaluate_frame_losses if frames else
+            evaluate = (functools.partial(evaluate_frame_losses, shares=self.shares) if frames else
                         functools.partial(evaluate_banded_losses, shares=self.shares) if banded else evaluate_losses)
 
             def loss_of(p):
@@ -362,7 +377,10 @@ class StyleEngine:
         for _ in range(n_iters):
             p = [b.detach().requires_grad_(True) for b in p] if banded else p.detach().requires_grad_(True)
             total, per = loss_of(p)
-            grads = [g.float() for g in torch.autograd.grad(total, p)]
+            # an empty channel share's piece (tensor:4 over 3 colours) may reach no term
+            empty = banded and any(b.numel() == 0 for b in p)
+            grads = [torch.zeros_like(x) if g is None else g.float()
+                     for g, x in zip(torch.autograd.grad(total, p, allow_unused=empty), p if banded else [p])]
             if mask is not None:
                 grads = [g * m for g, m in zip(grads, mask if banded else [mask])]
             upd, opt_state = opt.update(grads if banded else grads[0], opt_state)
@@ -415,7 +433,7 @@ class StyleEngine:
                         l: [torch.cat([fx[:a], m, fx[a:]]) for fx, m in zip(fixed[l], act[l])] for l in layers}
                 full.append(bands)
                 acts.append(act)
-            return evaluate_window_losses(full, acts, targets, self.loss_cfg, scale)
+            return evaluate_window_losses(full, acts, targets, self.loss_cfg, scale, self.shares)
 
         def assemble(p):
             return [b for bands, _ in windowed(p) for b in bands]
@@ -505,9 +523,6 @@ class StyleEngine:
         """
         if transfer_type not in ("img_img", "vid_img", "img_vid"):
             raise ValueError(f"unknown transfer_type {transfer_type!r}")
-        if transfer_type != "img_img":
-            self._img_img_only(*{"vid_img": ("vid_img's passes", "18e2"),
-                                 "img_vid": ("img_vid's windows", "18e3")}[transfer_type])
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
         loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
         targets = {"content": self.content_targets(content)}
@@ -564,15 +579,13 @@ class StyleEngine:
         if not self.grid:
             return _same, _same
         _, c, h, w = shape
-        heights = spatial.band_rows(h, len(self.grid), self.band_align, self.spec) if len(self.grid) > 1 else [h]
+        heights = self._band_heights(h)
         return (lambda x: spatial.split_pieces(x, heights, self.grid, c, w),
                 lambda x: spatial.gather_pieces(x, heights, self.shares, self.device, c, w))
 
-    def _img_img_only(self, what: str, item: str) -> None:
-        """Raises ``NotImplementedError`` on a "tensor" axis: only img_img's
-        ``optimize`` splits channels; ``what`` on it is ROADMAP ``item``."""
-        if self.shares > 1:
-            raise NotImplementedError(f"mesh {self.mesh.axes}: {what} on the 'tensor' axis are ROADMAP item {item}")
+    def _band_heights(self, h: int) -> list[int]:
+        """The bands' heights of an image of ``h`` rows on the grid."""
+        return spatial.band_rows(h, len(self.grid), self.band_align, self.spec) if len(self.grid) > 1 else [h]
 
     def _optimize_windows(self, targets, styles, blend_weights, init, num_iters, gfw, avg_frame_window,
                           save_callback, run_checkpoint, loop) -> np.ndarray:
@@ -673,44 +686,55 @@ class StyleEngine:
     def _window_layout(self, t_w: int, hw) -> "spatial.WindowLayout | None":
         """A ``t_w``-frame window of (H, W) frames on the mesh: its frames
         in shares over the "frames" axis's rows (``parallel.window_shares``;
-        an empty share's row sits idle), each share in row bands over its
-        row's "space" devices; None on one device."""
+        an empty share's row sits idle), each share in row bands and channel
+        shares on its row's (band, share) grid (``parallel.row_mesh``, never
+        a row of bands where the row holds "tensor" devices); None on one
+        device."""
         if self.sharding is None:
             return None
         h, w = (int(v) for v in hw)
         shares = [(row, part) for row, part in window_shares(self.sharding, t_w) if part.stop > part.start]
-        bands = len(shares[0][0])
-        heights = spatial.band_rows(h, bands, self.band_align, self.spec) if bands > 1 else [h]
-        return spatial.WindowLayout(shares, heights, 3, w)
+        grids = [mesh_grid(row_mesh(self.mesh, row)) for row, _ in shares]
+        return spatial.WindowLayout(shares, self._band_heights(h) if self.grid else [h], 3, w, grids)
 
     def _share_targets(self, targets: dict, layout) -> list[dict]:
         """Each share's targets, on its row, for ``evaluate_window_losses``:
-        the content (and temporal) targets (captured on the first row,
-        banded on a "space" mesh) copied band by band to the row and
-        expanded to the share's frames, the static style targets, and the
-        blocks of the dynamic target (captured whole on the first device)
-        that the share's block row of ``video_gram_blocks`` meets."""
+        the content (and temporal) targets (captured on the first row, in
+        pieces on a "space" or "tensor" mesh) copied piece by piece to the
+        row and expanded to the share's frames, the static style targets,
+        and the blocks of the dynamic target (captured whole on the first
+        device) that the block rows of the share's groups meet: a group is
+        one channel share of a share's frames (the share itself without a
+        "tensor" axis), its rows t·C + c of the whole window's Gram, so each
+        block is the target with its rows and columns permuted into group
+        order, once, here, and never the assembled Gram each iteration."""
         t_w = layout.frames
+        devices = layout.devices()
+        bands = len(layout.heights)
         out = []
-        for i, (row, part) in enumerate(layout.shares):
+        for i, ((row, part), devs) in enumerate(zip(layout.shares, devices)):
             n = part.stop - part.start
 
-            def bands(t):
-                return [b.to(d).expand(n, *b.shape[1:]) for b, d in zip(t if isinstance(t, list) else [t], row)]
+            def pieces(t):
+                return [b.to(d).expand(n, *b.shape[1:]) for b, d in zip(t if isinstance(t, list) else [t], devs)]
 
-            one = {"content": {l: bands(t) for l, t in targets.get("content", {}).items()},
+            one = {"content": {l: pieces(t) for l, t in targets.get("content", {}).items()},
                    "style": {l: t.to(row[0]) for l, t in targets.get("style", {}).items()}}
             if targets.get("temporal") is not None:
-                one["temporal"] = {k: bands(v) for k, v in targets["temporal"].items()}
+                one["temporal"] = {k: pieces(v) for k, v in targets["temporal"].items()}
             dynamic = {}
             for l, t in targets.get("style_video", {}).items():
                 c = targets["style"][l].shape[0]
                 if t.shape[0] != t_w * c:  # a window shorter than the target's (loss.py:165-166)
                     continue
-                mine = slice(part.start * c, part.stop * c)
-                dynamic[l] = [(t[mine, k.start * c : k.stop * c].to(row[0]),
-                               t[k.start * c : k.stop * c, mine].to(row[0]) if j > i else None)
-                              for j, (_, k) in enumerate(layout.shares) if j >= i]
+                # (frame share, its rows of the whole Gram, the group's device) per non-empty group, in group order
+                groups = [(k, torch.tensor([f * c + ch for f in range(p.start, p.stop)
+                                            for ch in range(cs.start, cs.stop)], device=t.device), devices[k][s * bands])
+                          for k, (_, p) in enumerate(layout.shares)
+                          for s, cs in enumerate(channel_shares(c, layout.tensor)) if cs.stop > cs.start]
+                dynamic[l] = [[(t[rows][:, other].to(dev), t[other][:, rows].to(dev) if h > g else None)
+                               for h, (_, other, _) in enumerate(groups) if h >= g]
+                              for g, (k, rows, dev) in enumerate(groups) if k == i]
             if dynamic:
                 one["style_video"] = dynamic
             out.append(one)
@@ -776,7 +800,6 @@ class StyleEngine:
         Returns ``(pastiche (1, 3, h, w), display (h, w, 3) uint8)``, both
         on the device; ``last_loss_log`` is the (num_iters, n_losses) log,
         also on the device."""
-        self._img_img_only("vid_img's passes", "18e2")
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
@@ -850,7 +873,6 @@ class StyleEngine:
         to the first device."""
         if init_mode not in ("content", "random"):
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
-        self._img_img_only("vid_img's passes", "18e2")
         contents_u8 = np.asarray(contents_u8)
         seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
         blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)

@@ -89,9 +89,10 @@ def load(name: str, defines=()) -> ctypes.CDLL:
 def ptxas_report(name: str, defines=()) -> str:
     """What ``ptxas -v`` says of each kernel of a variant (registers, shared
     memory, spill stores and loads): one more ``nvcc`` with
-    ``NVCC_FLAGS`` plus ``-Xptxas -v``, whose library is thrown away."""
+    ``NVCC_FLAGS`` plus ``-Xptxas -v``, whose library is thrown away.
+    Reports of several variants may run at once (each in its own file)."""
     os.makedirs(build_dir(), exist_ok=True)
-    tmp = os.path.join(build_dir(), f"ptxas_{name}_{os.getpid()}.so")
+    tmp = f"{library_path(name, defines)}.ptxas.{os.getpid()}.so"
     cmd = nvcc_command(name, defines, tmp)
     proc = subprocess.run([*cmd[:1], "-Xptxas", "-v", *cmd[1:]], capture_output=True, text=True)
     if os.path.exists(tmp):

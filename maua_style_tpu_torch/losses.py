@@ -21,11 +21,11 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
   cut into row bands, its own ``evaluate_banded_losses``).
 - ``evaluate_banded_losses``: a pastiche cut into row bands over a
   "space" mesh (img_img, vid_img's frames), the same values from per-band
-  sums; on a "tensor" axis too (img_img) each band cut into channel
-  shares, the values from per-piece sums and the Gram from its blocks.
+  sums; on a "tensor" axis too each band cut into channel shares, the
+  values from per-piece sums and the Gram from its blocks.
 - ``evaluate_window_losses``: an img_vid window laid out on a mesh, shares
-  of frames each cut into row bands, the same values as ``evaluate_losses``
-  of the whole window.
+  of frames each cut into row bands (and channel shares), the same values
+  as ``evaluate_losses`` of the whole window.
 - gradient normalisation (default on, ``--no_grad_norm`` disables): each
   term's backward gradient is L2-normalised then scaled by strength**2
   (``ScaleGradients``, loss.py:10-20), as an autograd.Function.
@@ -33,6 +33,7 @@ Activations are NCHW; the values equal the JAX package's NHWC ones.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Sequence
@@ -265,6 +266,7 @@ def evaluate_frame_losses(
     targets: dict[str, Any],
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
+    shares: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Independent frames stacked on the batch axis, each with its own
     content (and temporal) target and one shared style target: frame i's
@@ -274,9 +276,16 @@ def evaluate_frame_losses(
     (B, C, h_i, W) bands, targets and activations as lists; a "space"
     mesh) gives frame i ``evaluate_banded_losses`` of its rows in every
     band, and each style layer's Grams are one ``banded_gram`` over the
-    stack.  Returns (sum over frames, (B, n_losses))."""
+    stack; with ``shares`` > 1 (a "tensor" axis) the lists hold (band,
+    share) pieces, share-major, and each style layer's per-frame Grams are
+    one ``channel_gram`` over the stack.  Returns (sum over frames, (B,
+    n_losses))."""
     banded = isinstance(pastiche, list)
-    evaluate, norm_gram = (evaluate_banded_losses, _banded_norm_gram) if banded else (evaluate_losses, _norm_gram)
+    if banded:
+        evaluate = functools.partial(evaluate_banded_losses, shares=shares)
+        norm_gram = functools.partial(_banded_norm_gram, shares=shares)
+    else:
+        evaluate, norm_gram = evaluate_losses, _norm_gram
     grams = {l: norm_gram(acts[l], cfg) for l in cfg.style_layers if l in targets.get("style", {})}
     totals, pers = [], []
     for i in range((pastiche[0] if banded else pastiche).shape[0]):
@@ -306,9 +315,9 @@ def banded_tv_loss(bands) -> torch.Tensor:
 
 def _banded_norm_gram(bands, cfg: LossConfig, shares: int = 1) -> torch.Tensor:
     """Per-frame Grams of a banded stack / each frame's whole nelement;
-    with ``shares`` > 1, the (1, C, C) Gram of one image's (band, share)
-    pieces (``channel_gram``) / the whole layer's nelement, C the sum of
-    the shares' channels."""
+    with ``shares`` > 1, the (B, C, C) per-frame Grams of a stack's (band,
+    share) pieces (``channel_gram``) / each frame's whole nelement, C the
+    sum of the shares' channels."""
     cols = columns(bands, shares)
     rows = sum(x.shape[2] for x in cols[0])
     channels = sum(col[0].shape[1] for col in cols)
@@ -394,45 +403,54 @@ def evaluate_window_losses(
     targets: Sequence[dict[str, Any]],
     cfg: LossConfig,
     strength_scale: dict[str, float] | None = None,
+    channel_shares: int = 1,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``evaluate_losses`` of an img_vid window of T frames laid out on a
-    mesh: ``shares[i]`` holds share i's (T_i, 3, h_j, W) row bands,
-    ``acts[i]`` their activations ({layer: [band activations]}) and
-    ``targets[i]`` the targets on share i's row: the content (and temporal)
-    targets as bands expanded to T_i frames, the static style targets, and
-    under "style_video" the dynamic target's blocks that share i's block
-    row of ``video_gram_blocks`` meets, [(T_ik, T_ki or None) for k >= i].
+    mesh: ``shares[i]`` holds share i's (T_i, 3, h_j, W) row bands (with
+    ``channel_shares`` > 1, a "tensor" axis: its (band, channel share)
+    pieces, share-major), ``acts[i]`` their activations ({layer: [pieces]})
+    and ``targets[i]`` the targets on share i's row: the content (and
+    temporal) targets as pieces expanded to T_i frames, the static style
+    targets, and under "style_video" the dynamic target's blocks that the
+    block rows of share i's groups (``video_gram_blocks``: a group is one
+    channel share of the share's frames) meet, one list per non-empty
+    group, [(T_gh, T_hg or None) for groups h >= g], permuted into group
+    order at capture.
 
     Each frame's content, static style, TV and temporal values are its
     ``evaluate_banded_losses`` (``evaluate_frame_losses`` per share: each
-    style layer's Grams one ``banded_gram`` over the share); the window's
-    values are their sums on the first device, divided by T but for TV, as
-    ``evaluate_losses`` divides each frame's term.  The dynamic term is the
-    MSE of the blocks over the whole window's counts, each share's squared
-    errors summed on its row and then on the first device, so gradient
-    normalisation acts on one scalar per layer as it does unsharded."""
+    style layer's per-frame Grams one ``banded_gram`` or ``channel_gram``
+    over the share); the window's values are their sums on the first
+    device, divided by T but for TV, as ``evaluate_losses`` divides each
+    frame's term.  The dynamic term is the MSE of the group blocks against
+    the permuted target over the whole window's counts (the same sum of
+    squares as the whole Gram's), each group's squared errors summed on its
+    device and then on the first device, so gradient normalisation acts on
+    one scalar per layer as it does unsharded."""
     dev = shares[0][0].device
     scale = strength_scale or {}
     frames = sum(bands[0].shape[0] for bands in shares)
-    per = sum_on(dev, [evaluate_frame_losses(list(bands), a, t, cfg, strength_scale)[1].sum(dim=0)
+    per = sum_on(dev, [evaluate_frame_losses(list(bands), a, t, cfg, strength_scale, channel_shares)[1].sum(dim=0)
                        for bands, a, t in zip(shares, acts, targets)])
     is_tv = torch.tensor([n == "tv" for n in cfg.loss_names()], device=dev)
     values = list(torch.where(is_tv, per, per / frames).unbind())
     first_style = len(cfg.content_layers)
     for k, l in enumerate(cfg.style_layers):
-        pieces = [t.get("style_video", {}).get(l) for t in targets]
-        if cfg.video_style_factor <= 0 or pieces[0] is None:
+        own = [g for t in targets for g in t.get("style_video", {}).get(l, [])]
+        if cfg.video_style_factor <= 0 or not own:
             continue
-        blocks = video_gram_blocks([a[l] for a in acts], cfg.use_covariance)
-        band = acts[0][l]
-        n = frames * band[0].shape[1] * sum(x.shape[2] for x in band) * band[0].shape[3]
+        groups = [col for a in acts for col in columns(a[l], channel_shares) if col[0].shape[1]]
+        blocks = video_gram_blocks(groups, cfg.use_covariance)
+        cols = columns(acts[0][l], channel_shares)
+        c = sum(col[0].shape[1] for col in cols)
+        n = frames * c * sum(x.shape[2] for x in cols[0]) * cols[0][0].shape[3]
         sq = []
-        for row, own in zip(blocks, pieces):
-            parts = [torch.sum(torch.square(g / n - t_ik)) for g, (t_ik, _) in zip(row, own)]
-            parts += [torch.sum(torch.square(g.transpose(0, 1) / n - t_ki)) for g, (_, t_ki) in zip(row, own)
-                      if t_ki is not None]
+        for row, mine in zip(blocks, own):
+            parts = [torch.sum(torch.square(g / n - t_gh)) for g, (t_gh, _) in zip(row, mine)]
+            parts += [torch.sum(torch.square(g.transpose(0, 1) / n - t_hg)) for g, (_, t_hg) in zip(row, mine)
+                      if t_hg is not None]
             sq.append(sum_on(row[0].device, parts))
-        mse = sum_on(dev, sq) / (frames * band[0].shape[1]) ** 2
+        mse = sum_on(dev, sq) / (frames * c) ** 2
         strength = cfg.style_weight * scale.get(f"style:{l}", 1.0)
         values[first_style + k] = values[first_style + k] + cfg.video_style_factor * _term(
             mse, strength, frames, cfg.normalize_gradients)

@@ -29,11 +29,13 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
   ``torch.matmul`` on share i's device after copying Fⱼ there (JAX computes
   ``video_gram`` as a ``dot_general`` outside any Pallas kernel,
   ops/gram.py:96-104); the block below is its transpose.
-- ``channel_gram``: the Gram of one image whose channels are cut into
-  shares (the "tensor" axis, ``parallel.channel_shares``), each share in
-  row bands: the same blocks, with one frame a share's window view being
-  its own (1, C_t, N) features; K1 on each band of each diagonal block,
-  plain products off the diagonal (JAX's default Gram is a
+  On a "tensor" axis a share of frames is further cut by channel share
+  into groups whose rows are not contiguous in the window's frame-major
+  order: the same blocks, of the rows permuted into group order.
+- ``channel_gram``: the per-frame Grams of a stack whose channels are cut
+  into shares (the "tensor" axis, ``parallel.channel_shares``), each share
+  in row bands: K1 on each band of each diagonal block over the stack,
+  batched plain products off the diagonal (JAX's default Gram is a
   ``dot_general``, losses.py:42, 70-75).
 """
 
@@ -250,54 +252,79 @@ def banded_video_gram(bands, use_covariance: bool = False) -> torch.Tensor:
 
 
 def _cross_block(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """An off-diagonal block of the whole-window Gram, (R, N) x (S, N) ->
-    (R, S) f32 on ``a``'s device, ``b`` copied there (autograd carries its
-    gradient back through the copy)."""
-    return torch.matmul(a.float(), b.to(a.device).float().transpose(0, 1))
+    """An off-diagonal block of a Gram cut into groups of rows, (…, R, N) x
+    (…, S, N) -> (…, R, S) f32 on ``a``'s device (per frame for a leading
+    frame dim), ``b`` copied there (autograd carries its gradient back
+    through the copy)."""
+    return torch.matmul(a.float(), b.to(a.device).float().transpose(-2, -1))
+
+
+def _gram_blocks(groups) -> list[list[torch.Tensor]]:
+    """The blocks on and above the diagonal of the Gram of features cut into
+    groups of rows, each group a list of its bands' (B, R_i, N_j) feature
+    views (every group has the same bands): row i is [G_ii, G_i,i+1, ...],
+    each (B, R_i, R_k) f32 on group i's first device.  G_ii is K1 on each
+    band, summed; G_ik = Σ_j F_ij F_kjᵀ a plain product per band
+    (``_cross_block``), summed."""
+    rows = []
+    for i, fi in enumerate(groups):
+        dev = fi[0].device
+        row = [sum_on(dev, [_GramFn.apply(f) for f in fi])]
+        row += [sum_on(dev, [_cross_block(a, b) for a, b in zip(fi, fk)]) for fk in groups[i + 1 :]]
+        rows.append(row)
+    return rows
+
+
+def _assemble(blocks) -> torch.Tensor:
+    """``_gram_blocks``' blocks (or 2-D ones) as the whole matrix on the
+    first block's device, the blocks below the diagonal the transposes of
+    those above."""
+    dev = blocks[0][0].device
+    rows = []
+    for i, row in enumerate(blocks):
+        below = [blocks[k][i - k].transpose(-2, -1).to(dev) for k in range(i)]
+        rows.append(torch.cat(below + [b.to(dev) for b in row], dim=-1))
+    return torch.cat(rows, dim=-2)
 
 
 def video_gram_blocks(shares, use_covariance: bool = False) -> list[list[torch.Tensor]]:
-    """The whole-window Gram of a window cut into shares of frames, each a
-    list of row bands ((T_i, C, h_j, W) each; every share has the same band
-    heights), as blocks on and above the diagonal: row i is [G_ii, G_i,i+1,
-    ...], each (T_i·C, T_k·C) f32 on share i's first device.  G_ii is the
-    share's ``banded_video_gram``; G_ik = Σ_j F_ij F_kjᵀ (band j of both
-    shares) is a plain product per band on share i's band-j device, summed
-    on its first device.  ``use_covariance`` centres each share's rows as
-    ``banded_video_gram`` does.  G_ki is G_ikᵀ."""
-    fs = [_band_features([_window_view(x) for x in bands], use_covariance) for bands in shares]
-    rows = []
-    for i, fi in enumerate(fs):
-        dev = fi[0].device
-        row = [sum_on(dev, [_GramFn.apply(f)[0] for f in fi])]
-        row += [sum_on(dev, [_cross_block(a[0], b[0]) for a, b in zip(fi, fk)]) for fk in fs[i + 1 :]]
-        rows.append(row)
-    return rows
+    """The whole-window Gram of a window cut into groups of its (frame,
+    channel) rows, each a list of row bands ((T_i, C_i, h_j, W) each; every
+    group has the same band heights), as blocks on and above the diagonal:
+    row i is [G_ii, G_i,i+1, ...], each (T_i·C_i, T_k·C_k) f32 on group
+    i's first device.  A group is a share of frames (``parallel.window_
+    shares``), or on a "tensor" axis a share of frames' channel share: its
+    rows are the window's rows t·C + c of its frames t and channels c, in
+    that (frame-major) order, so the blocks of channel shares are those of
+    the whole Gram with its rows and columns permuted into group order.
+    G_ii is the group's ``banded_video_gram``; G_ik = Σ_j F_ij F_kjᵀ (band
+    j of both groups) is a plain product per band on group i's band-j
+    device, summed on its first device.  ``use_covariance`` centres each
+    group's rows as ``banded_video_gram`` does.  G_ki is G_ikᵀ."""
+    blocks = _gram_blocks([_band_features([_window_view(x) for x in bands], use_covariance) for bands in shares])
+    return [[b[0] for b in row] for row in blocks]
 
 
 def shared_video_gram(shares, use_covariance: bool = False) -> torch.Tensor:
     """``video_gram`` of a window cut into shares of frames (each a list of
     row bands): ``video_gram_blocks`` assembled into the (T·C, T·C) matrix
     on the first share's device."""
-    blocks = video_gram_blocks(shares, use_covariance)
-    dev = blocks[0][0].device
-    rows = []
-    for i, row in enumerate(blocks):
-        below = [blocks[k][i - k].transpose(0, 1).to(dev) for k in range(i)]
-        rows.append(torch.cat(below + [b.to(dev) for b in row], dim=1))
-    return torch.cat(rows)
+    return _assemble(video_gram_blocks(shares, use_covariance))
 
 
 def channel_gram(shares, use_covariance: bool = False) -> torch.Tensor:
-    """The (1, C, C) f32 Gram of one image cut into channel shares, each a
-    list of its row bands ((1, C_t, h_j, W) each; every share has the same
-    band heights), on the first share's device: ``shared_video_gram`` of
-    the shares.  Each diagonal block C_t × C_t is the share's bands' K1
-    Grams summed on its first device, each block above it the bands' plain
-    products (``_cross_block``) summed there, the blocks below their
-    transposes.  ``use_covariance`` centres each channel by its mean over
-    every band."""
-    return shared_video_gram(shares, use_covariance)[None]
+    """The per-frame (B, C, C) f32 Grams of a stack of B frames whose
+    channels are cut into shares, each a list of its row bands ((B, C_t,
+    h_j, W) each; every share has the same band heights), on the first
+    share's device.  Each diagonal block (B, C_t, C_t) is the share's
+    bands' K1 Grams over the stack, summed on its first device; each block
+    above it the bands' batched plain products (``_cross_block``), (B,
+    C_s, N) x (B, N, C_u), summed there; the blocks below their transposes.
+    Frames never meet: each frame's Gram is its own (the window view of a
+    stack would give one (B·C, B·C) Gram).  An empty share (past the last
+    channel) has no block.  ``use_covariance`` centres each frame's
+    channels by their means over every band."""
+    return _assemble(_gram_blocks([_band_features(bands, use_covariance) for bands in shares if bands[0].shape[1]]))
 
 
 def gram_matrix(x: torch.Tensor, use_covariance: bool = False) -> torch.Tensor:

@@ -3,7 +3,7 @@ the spatial split of a pastiche into bands, and its channel split into
 shares."""
 
 from .mesh import (Mesh, Sharding, build_mesh, channel_shares, frame_shards, mesh_grid, mesh_rows,
-                   pastiche_sharding_for, sharding_for, window_shares)
+                   pastiche_sharding_for, row_mesh, sharding_for, window_shares)
 
 __all__ = ["Mesh", "Sharding", "build_mesh", "channel_shares", "frame_shards", "mesh_grid", "mesh_rows",
-           "pastiche_sharding_for", "sharding_for", "window_shares"]
+           "pastiche_sharding_for", "row_mesh", "sharding_for", "window_shares"]

@@ -11,10 +11,11 @@ Axes: "space" cuts a pastiche's rows into bands (``parallel/spatial.py``;
 img_img, vid_img's frames and img_vid's windows), "frames" shares a stacked
 batch of independent frames out to the rows of the mesh (vid_img's first
 pass, ``StyleEngine.optimize_frames``) and an img_vid window's frames
-(``window_shares``), each row one frames index and all its "space"
-devices; "tensor" cuts img_img's channels into shares (``channel_shares``),
-each share's column of bands on its own devices (``mesh_grid``: a band ×
-share grid of the first "frames" row).
+(``window_shares``), each row one frames index and all its other devices
+(``mesh_rows``; ``row_mesh``: the row as a mesh of its own); "tensor" cuts
+every layer's channels into shares (``channel_shares``), each share's
+column of bands on its own devices (``mesh_grid``: a band × share grid of
+a row), on every path but the banded decoder.
 """
 
 from __future__ import annotations
@@ -125,11 +126,10 @@ def mesh_grid(mesh: Mesh) -> list[tuple[torch.device, ...]]:
 def channel_shares(channels: int, shares: int) -> list[slice]:
     """``channels`` cut into ``shares`` contiguous shares, as even as possible
     with the larger shares first (3 on tensor:2 give 2 + 1, 64 on tensor:3
-    22 + 21 + 21), as JAX's GSPMD splits an uneven channel dim.  Raises
-    ``ValueError`` naming the axis where a share would be empty."""
-    if shares > channels:
-        raise ValueError(f"a 'tensor' axis of {shares} leaves a share of {channels} channels empty: "
-                         f"the axis must not exceed the fewest channels of any layer ({channels})")
+    22 + 21 + 21), as JAX's GSPMD splits an uneven channel dim.  Past the
+    last channel the shares are empty (3 on tensor:4 give 1 + 1 + 1 + 0),
+    as GSPMD's padding leaves the last devices nothing: every consumer of
+    a piece does nothing for an empty one."""
     return _even_cuts(channels, shares)
 
 
@@ -143,6 +143,14 @@ def _even_cuts(n: int, k: int) -> list[slice]:
         out.append(slice(start, start + size))
         start += size
     return out
+
+
+def row_mesh(mesh: Mesh, row: Sequence) -> Mesh:
+    """One row of ``mesh_rows(mesh)`` as a mesh of its own: its devices over
+    the mesh's axes but "frames", in order (a row holds them row-major), so
+    a row of frames:2,tensor:2 is a tensor:2 mesh and never a row of
+    bands."""
+    return Mesh(tuple(torch.device(d) for d in row), tuple((a, s) for a, s in mesh.axes if a != "frames"))
 
 
 def frame_shards(sharding: Sharding | None, batch: int) -> list[tuple[tuple[torch.device, ...], slice]] | None:
@@ -174,4 +182,4 @@ def window_shares(sharding: Sharding, t_w: int) -> list[tuple[tuple[torch.device
 
 
 __all__ = ["Mesh", "Sharding", "build_mesh", "sharding_for", "pastiche_sharding_for", "mesh_rows", "mesh_grid",
-           "channel_shares", "frame_shards", "window_shares"]
+           "channel_shares", "row_mesh", "frame_shards", "window_shares"]

@@ -36,14 +36,16 @@ exchange is written out here).
   i's partial outputs are summed on each output share's device (a
   reduce-scatter), and the bias is added once, after the sum; ReLUs and
   pools act on each piece, and each share's column of bands exchanges halo
-  rows.
+  rows.  A share past the last channel (3 channels on tensor:4) is empty:
+  it convolves, pools and sums nothing.
 
 The optimiser state of a banded pastiche is kept band by band (lists of
 tensors, ``engine/lbfgs.py``); ``split_rows`` and ``gather_rows`` move a
 pastiche-sized tensor, or a state's, between the whole layout and bands,
-and a ``WindowLayout`` an img_vid window's, whose frames are also shared
-out to the rows of a "frames" axis (``parallel.window_shares``): one piece
-per share and band.
+``split_pieces`` and ``gather_pieces`` between it and (band, share)
+pieces, and a ``WindowLayout`` an img_vid window's, whose frames are also
+shared out to the rows of a "frames" axis (``parallel.window_shares``):
+one piece per frame share, channel share and band.
 """
 
 from __future__ import annotations
@@ -251,22 +253,31 @@ def conv_pieces(convs: Sequence, xs: Sequence[torch.Tensor], shares: int) -> lis
     column of bands exchanged halo rows (``with_halo``; one band pads
     itself); band i's partial outputs are then summed, output share by
     output share, on that share's device (a reduce-scatter), and the bias
-    added once, after the sum.  Returns the output's pieces, share-major."""
+    added once, after the sum.  An empty input share (``channel_shares``
+    past the last channel) convolves nothing, and an empty output share
+    gets an empty (B, 0, h, W) piece, with no sum and no bias.  Returns the
+    output's pieces, share-major."""
     n = len(xs) // shares
     c = convs[0]
     k, s, p = c.kernel_size[0], c.stride[0], c.padding[0]
     ins, outs = channel_shares(c.in_channels, shares), channel_shares(c.out_channels, shares)
+    live = [t for t, ch in enumerate(ins) if ch.stop > ch.start]
     cols = columns(xs, shares)
     pad = c.padding
     if n > 1:
-        cols, pad = [with_halo(col, p, k - s - p, p) for col in cols], (0, c.padding[1])
-    partial = [[F.conv2d(x, share_weight(convs[t * n + i], ins[t]), None, c.stride, pad) for i, x in enumerate(col)]
-               for t, col in enumerate(cols)]
+        cols = [with_halo(col, p, k - s - p, p) if t in live else col for t, col in enumerate(cols)]
+        pad = (0, c.padding[1])
+    partial = {t: [F.conv2d(x, share_weight(convs[t * n + i], ins[t]), None, c.stride, pad)
+                   for i, x in enumerate(cols[t])] for t in live}
     out = []
     for u, ch in enumerate(outs):
         for i in range(n):
             m = convs[u * n + i]
-            y = sum_on(m.weight.device, [partial[t][i][:, ch] for t in range(shares)])
+            if ch.stop == ch.start:
+                y = partial[live[0]][i]
+                out.append(y.new_empty((y.shape[0], 0, *y.shape[2:]), device=m.weight.device))
+                continue
+            y = sum_on(m.weight.device, [partial[t][i][:, ch] for t in live])
             out.append(y if m.bias is None else y + m.bias[ch][:, None, None])
     return out
 
@@ -279,15 +290,20 @@ def banded_forward(extractors: Sequence, bands: Sequence[torch.Tensor], wanted: 
     neighbours (``with_halo``).  With ``shares`` > 1 ("tensor") ``bands``
     are (band, share) pieces, share-major, each a share of the channels:
     the convolutions are ``conv_pieces``, each share's column of bands
-    exchanges its own halo rows.  Returns {layer: [band (or piece)
-    activations]} for ``wanted``."""
+    exchanges its own halo rows, and an empty share's pieces stay empty.
+    Returns {layer: [band (or piece) activations]} for ``wanted``."""
     def conv(layer, xs):
         convs = [e.get_submodule(layer.name) for e in extractors]
         return conv_bands(convs, xs) if shares == 1 else conv_pieces(convs, xs, shares)
 
     def pool(layer, xs):
         st = band_step(layer)
-        return [pool_layer(x, layer) for col in columns(xs, shares) for x in with_halo(col, st.above, st.below, st.pad)]
+        cols = columns(xs, shares)
+        outs = [[pool_layer(x, layer) for x in with_halo(col, st.above, st.below, st.pad)] if col[0].shape[1] else None
+                for col in cols]
+        live = next(o for o in outs if o is not None)  # an empty share's bands: empty, at a live share's rows
+        return [y for col, o in zip(cols, outs)
+                for y in (o or [x.new_empty((x.shape[0], 0, *y.shape[2:])) for x, y in zip(col, live)])]
 
     return extractors[0](list(bands), wanted, conv=conv, pool=pool)
 
@@ -344,8 +360,9 @@ def banded_decode(vqgan, z: torch.Tensor, mesh) -> torch.Tensor:
     plan = sharding_for(mesh)
     _, tensor_axis, space_axis, _ = plan.spec if plan else (None,) * 4
     if tensor_axis:
-        raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e on img_img's engine only; "
-                                  "no JAX path decodes on a mesh, so the banded decoder does not split channels")
+        raise NotImplementedError(f"mesh {mesh.axes}: the 'tensor' axis is ROADMAP item 18e, the style engine's "
+                                  "channel split; no JAX path decodes on a mesh, so the banded decoder does not split "
+                                  "channels")
     if not space_axis:
         return vqgan.decode(z)
     devices = [row[0] for row in mesh_grid(mesh)]
@@ -427,20 +444,49 @@ def gather_pieces(pieces: Sequence[torch.Tensor], heights: Sequence[int], shares
     return whole if image else whole.reshape(*lead, -1)
 
 
+def split_bands_shared(x: torch.Tensor, heights: Sequence[int], grid: Sequence[Sequence], channels: int,
+                       width: int) -> list:
+    """A tensor that every channel share reads whole (vid_img's (1, 1, H, W)
+    reliability weights, which multiply every channel of the pastiche): its
+    row bands, band i copied to each share's device of the grid, in
+    ``split_pieces``' piece order (share-major)."""
+    bands = split_rows(x, heights, [row[0] for row in grid], channels, width)
+    return [b.to(row[t]) for t in range(len(grid[0])) for b, row in zip(bands, grid)]
+
+
 class WindowLayout(NamedTuple):
     """An img_vid window of ``frames`` frames on a mesh: ``shares``, (row,
     frames) per non-empty share of ``parallel.window_shares``, each share's
-    frames cut into row bands of ``heights``, band j on ``row[j]``.  A
-    window-sized tensor is one piece per share and band, share-major."""
+    frames cut into row bands of ``heights`` and channel shares on its
+    row's (band, share) grid (``grids``: ``parallel.mesh_grid`` of each
+    row; None: each row's devices are its bands, one channel share).  A
+    window-sized tensor is one piece per (frame share i, channel share t,
+    band j), on ``grids[i][j][t]``: frame-share-major, each frame share's
+    pieces share-major as ``split_pieces`` cuts them."""
 
     shares: list
     heights: list[int]
     channels: int
     width: int
+    grids: list | None = None
 
     @property
     def frames(self) -> int:
         return self.shares[-1][1].stop
+
+    @property
+    def tensor(self) -> int:
+        """The channel shares of each frame share."""
+        return len(self.grids[0][0]) if self.grids else 1
+
+    def grid(self, i: int) -> list:
+        """Frame share i's (band, share) grid."""
+        return self.grids[i] if self.grids else [(d,) for d in self.shares[i][0]]
+
+    def devices(self) -> list[list]:
+        """Each frame share's pieces' devices, in piece order."""
+        return [[g[j][t] for t in range(self.tensor) for j in range(len(g))]
+                for g in map(self.grid, range(len(self.shares)))]
 
     def split(self, x: torch.Tensor) -> list:
         """A window-sized (T, C, H, W) image or flat (..., T·C·H·W) vector
@@ -448,28 +494,29 @@ class WindowLayout(NamedTuple):
         storage."""
         image = x.dim() == 4 and tuple(x.shape[1:]) == (self.channels, sum(self.heights), self.width)
         out = []
-        for row, part in self.shares:
+        for i, (_, part) in enumerate(self.shares):
             if image:
-                out += split_rows(x[part], self.heights, row, self.channels, self.width)
+                out += split_pieces(x[part], self.heights, self.grid(i), self.channels, self.width)
             else:
                 frames = x.reshape(*x.shape[:-1], self.frames, -1)[..., part, :]
                 out += [b.reshape(*b.shape[:-2], -1)
-                        for b in split_rows(frames, self.heights, row, self.channels, self.width)]
+                        for b in split_pieces(frames, self.heights, self.grid(i), self.channels, self.width)]
         return out
 
     def gather(self, pieces: Sequence[torch.Tensor], device) -> torch.Tensor:
         """``split``'s inverse: the pieces back to one tensor on ``device``."""
-        image = pieces[0].dim() == 4 and tuple(pieces[0].shape[1:]) == (self.channels, self.heights[0], self.width)
+        first = channel_shares(self.channels, self.tensor)[0].stop
+        image = pieces[0].dim() == 4 and tuple(pieces[0].shape[1:]) == (first, self.heights[0], self.width)
         out = []
         for (_, part), own in zip(self.shares, self.by_share(pieces)):
-            if not image:  # each band's flat (..., T_i·C·h·W) as (..., T_i, C·h·W)
+            if not image:  # each piece's flat (..., T_i·C_t·h·W) as (..., T_i, C_t·h·W)
                 own = [p.reshape(*p.shape[:-1], part.stop - part.start, -1) for p in own]
-            out.append(gather_rows(own, self.heights, device, self.channels, self.width))
+            out.append(gather_pieces(own, self.heights, self.tensor, device, self.channels, self.width))
         return torch.cat(out) if image else torch.cat(out, dim=-2).flatten(-2)
 
     def by_share(self, pieces: Sequence) -> list[list]:
-        """The pieces grouped by share, each group in band order."""
-        n = len(self.heights)
+        """The pieces grouped by frame share, each group in piece order."""
+        n = len(self.heights) * self.tensor
         return [list(pieces[i * n : (i + 1) * n]) for i in range(len(self.shares))]
 
     def frozen_cut(self, frozen: tuple[int, int] | None) -> list[tuple[int, int]]:
@@ -502,4 +549,5 @@ def sum_on(device, values: Sequence[torch.Tensor]) -> torch.Tensor:
 
 __all__ = ["BandStep", "band_step", "band_geometry", "band_alignment", "band_rows", "level_heights", "halo_pad",
            "with_halo", "conv_bands", "columns", "share_weight", "conv_pieces", "banded_forward", "group_norm_bands", "replica",
-           "banded_decode", "split_rows", "gather_rows", "split_pieces", "gather_pieces", "WindowLayout", "sum_on"]
+           "banded_decode", "split_rows", "gather_rows", "split_pieces", "gather_pieces", "split_bands_shared",
+           "WindowLayout", "sum_on"]

@@ -387,8 +387,8 @@ def search_budget_bytes(device=None, devices: int = 1) -> int:
     return int(min(torch.cuda.mem_get_info(d)[0] for d in devs))
 
 
-# the step up from the best fit while the fitted prediction stalls there and
-# no probe has failed yet: a quarter octave (the reference's ladder is sqrt(2))
+# the step up from the best fit where the fitted boundary lies below it and no
+# probe has failed yet: a quarter octave (the reference's ladder is sqrt(2))
 STALL_STEP = 2 ** 0.25
 
 
@@ -433,13 +433,15 @@ def probe_max_sizes(
     rung): near the card's limit the reserved peak levels off under the
     free memory while what tensors take still grows as size², and a
     prediction from the reserved peak stalls on the best fit (it crept up
-    32 px a probe).  Where the prediction lands within one rung of the
-    best fit and no probe has failed yet, the next probe is
-    ``STALL_STEP`` (a quarter octave) above it.  Where a probe ran out of
-    memory no more than a rung below the fitted boundary, the next is the
-    boundary's rung (clamped inside the bracket), twice at most before a
-    bisection; a fitted boundary further past the failure (the model is
-    wrong there) bisects.  Wherever the footprint is monotone in size the
+    32 px a probe).  Where the fitted boundary lies within one rung above
+    the best fit and no probe has failed yet, the next probe is the next
+    rung; where it lies below the fit (what tensors took passed the budget
+    and the probe still fitted), the next probe is ``STALL_STEP`` (a
+    quarter octave) above it.  Where a probe ran out of memory no more
+    than a rung below the fitted boundary, the next is the boundary's rung
+    (clamped inside the bracket), twice at most before a bisection; a
+    fitted boundary further past the failure (the model is wrong there)
+    bisects.  Wherever the footprint is monotone in size the
     search ends on the same 32-px bracket as JAX's."""
     if method == "analysis" and devices > 1:
         probe_devices(devices)  # JAX's "need N devices for the sharded probe", before any probe
@@ -505,8 +507,11 @@ def probe_max_sizes(
                     s1 = fit[0]
                     if s1 >= 16320:
                         break  # effectively unbounded
-                    pred = _round32(_boundary(fits, budget) + 16)  # the nearest rung
-                    size = pred if pred > s1 + 32 else _round32(s1 * STALL_STEP)  # stalled: step up
+                    bound = _boundary(fits, budget)
+                    pred = _round32(bound + 16)  # the nearest rung
+                    if pred <= s1 + 32:  # the boundary within a rung above the fit: the next rung, else stalled
+                        pred = s1 + 32 if bound >= s1 else _round32(s1 * STALL_STEP)
+                    size = pred
                     size = max(min(size, 16352), s1 + 32)
                 else:
                     (s1, b1), (s2, b2) = fit, fail

@@ -394,9 +394,10 @@ def _two_cards(monkeypatch):
 
 
 def test_engine_paths_left_unsharded_raise():
-    """The "tensor" axis (18e) raises, for img_vid's windows too (item 18c
-    runs them on "frames" and "space" meshes,
-    tests/test_torch_parallel_windows.py).  NIN on "space:2" and on
+    """img_vid's windows on "space × tensor" and "frames × tensor" meshes
+    (items 18c and 18e3; they raised before 18e3) now run, finite and of
+    the asked shape (their results against JAX's and unsharded runs:
+    tests/test_torch_parallel_tensor_windows.py).  NIN on "space:2" and on
     "frames:2,space:2" (item 18k) now runs: an engine on two bands of 16-row
     multiples (NIN up to relu8), and vid_img's stacked first pass on the combined mesh giving
     finite frames of the asked shape (its results against unbanded runs:
@@ -405,9 +406,9 @@ def test_engine_paths_left_unsharded_raise():
     u8 = rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
     style = rng.random((1, 32, 32, 3), np.float32)
     for axes in ([("space", 2), ("tensor", 2)], [("frames", 2), ("tensor", 2)]):
-        with pytest.raises(NotImplementedError, match="item 18e"):
-            _small_engine(_mesh(axes)).optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32),
-                                                1, transfer_type="img_vid", gram_frame_window=2)
+        out = _small_engine(_mesh(axes)).optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32),
+                                                  1, transfer_type="img_vid", gram_frame_window=2)
+        assert out.shape == (4, 32, 32, 3) and np.isfinite(out).all()
     spec = select_model("nin")
     nin_cfg = LossConfig(content_layers=("relu8",), style_layers=("relu1",))
     engine = StyleEngine(spec, init_params(spec), nin_cfg, device="cpu", mesh=_mesh([("space", 2)]))

@@ -9,7 +9,8 @@ block Gram against ``gram_reference``, one VGG-19 step on "tensor" and
 ``test_tensor_axis_sharding_matches_single_device`` (tests/test_parallel.py:
 117-139) against JAX's own GSPMD run and the port's unsharded one, the
 style CLI with ``--mesh tensor:3`` against JAX's, run-state checkpoints
-across layouts, and the paths that still raise.
+across layouts, tensor:4 over the 3 colour channels (an empty share), and
+the banded decoder's refusal.
 
 A share's convolution sums its input channels in another order than the
 whole convolution (JAX's own test: "partial sums arrive via psum in a
@@ -75,15 +76,47 @@ def test_channel_shares_even_larger_first():
     assert sizes(3, 2) == [2, 1] and sizes(3, 3) == [1, 1, 1] and sizes(64, 3) == [22, 21, 21]
     assert sizes(512, 3) == [171, 171, 170] and sizes(128, 2) == [64, 64]
     assert channel_shares(64, 3)[1] == slice(22, 43)
-    with pytest.raises(ValueError, match="'tensor' axis of 4"):
-        channel_shares(3, 4)
+    assert sizes(3, 4) == [1, 1, 1, 0] and channel_shares(3, 4)[3] == slice(3, 3)  # GSPMD's padding: nothing
 
 
-def test_tensor4_raises_value_error():
-    """tensor:4 over the pastiche's 3 colour channels leaves a share empty."""
-    spec = select_model("vgg19")
-    with pytest.raises(ValueError, match="'tensor' axis of 4"):
-        StyleEngine(spec, init_params(spec), LossConfig(), device="cpu", mesh=_mesh([("tensor", 4)]))
+def test_tensor4_builds_and_steps_as_unsharded(vgg19, monkeypatch):
+    """tensor:4 over the pastiche's 3 colour channels (1 + 1 + 1 + 0; 16
+    channels a share past it) builds and takes one step within rtol 1e-5
+    of unsharded (the terms; the gradient within 1e-5 of max|g|, as
+    ``test_step_matches_unsharded``), and no convolution or Gram meets the
+    empty share."""
+    spec, params = vgg19
+    cfg = LossConfig()
+    rng = np.random.default_rng(7)
+    content = rng.random((1, 64, 40, 3), np.float32) * 100
+    style = rng.random((1, 48, 48, 3), np.float32) * 100
+    p = torch.from_numpy(rng.standard_normal((1, 3, 64, 40)).astype(np.float32) * 50)
+    one = StyleEngine(spec, params, cfg, device="cpu")
+    style_t = one.style_targets([style], [1.0])
+    x = p.clone().requires_grad_(True)
+    total, per = evaluate_losses(x, one._extract(x, cfg.all_layers), {"content": one.content_targets(content),
+                                                                      "style": style_t}, cfg)
+    (grad,) = torch.autograd.grad(total, x)
+
+    from maua_style_tpu_torch.ops import gram as gram_ops
+
+    convs, grams = [], []
+    conv2d, gram = spatial.F.conv2d, gram_ops.gram
+    monkeypatch.setattr(spatial.F, "conv2d", lambda x, *a, **k: convs.append(x.shape[1]) or conv2d(x, *a, **k))
+    monkeypatch.setattr(gram_ops, "gram", lambda f: grams.append(tuple(f.shape)) or gram(f))
+    engine = StyleEngine(spec, params, cfg, device="cpu", mesh=_mesh([("tensor", 4)]))
+    assert engine.shares == 4
+    split, gather = engine._band_layout(p.shape)
+    pieces = [b.requires_grad_(True) for b in split(p)]
+    assert [b.shape[1] for b in pieces] == [1, 1, 1, 0]
+    targets = {"content": engine.content_targets(content), "style": style_t}
+    btotal, bper = evaluate_banded_losses(pieces, engine._extract_bands(pieces, cfg.all_layers), targets, cfg,
+                                          shares=4)
+    bgrad = gather([torch.zeros_like(b) if g is None else g
+                    for b, g in zip(pieces, torch.autograd.grad(btotal, pieces, allow_unused=True))])
+    assert convs and min(convs) >= 1 and grams and min(c for _, c, _ in grams) >= 1
+    np.testing.assert_allclose(bper.detach().numpy(), per.detach().numpy(), rtol=1e-5, atol=0)
+    assert float((bgrad - grad).abs().max() / grad.abs().max()) <= 1e-5
 
 
 def test_split_and_gather_pieces_round_trip():
@@ -329,24 +362,11 @@ def test_img_img_cli_tensor3_matches_jax(tmp_path, monkeypatch):
 # -- what still raises ------------------------------------------------------------------------
 
 
-def test_video_paths_and_decoder_raise_on_tensor():
-    """vid_img's passes (item 18e2), img_vid's windows (18e3) and the banded
-    decoder (no JAX path decodes on a mesh) raise on a "tensor" axis; the
-    engine itself builds, for img_img."""
-    rng = np.random.default_rng(0)
-    u8 = rng.integers(0, 255, (4, 32, 32, 3)).astype(np.uint8)
-    style = rng.random((1, 32, 32, 3), np.float32)
-    engine = _port_small(_mesh(TENSOR2))
-    kw = dict(out_hw=(32, 32), blend_weights=[1.0])
-    with pytest.raises(NotImplementedError, match="item 18e2"):
-        engine.optimize_frame(u8[0], [style], 1, **kw)
-    with pytest.raises(NotImplementedError, match="item 18e2"):
-        engine.optimize_frames(u8, [style], 1, init_mode="content", **kw)
-    with pytest.raises(NotImplementedError, match="item 18e2"):
-        engine.optimize(style, [style], style, 1, transfer_type="vid_img")
-    with pytest.raises(NotImplementedError, match="item 18e3"):
-        engine.optimize(style, [u8.astype(np.float32)], np.zeros((4, 32, 32, 3), np.float32), 1,
-                        transfer_type="img_vid", gram_frame_window=2)
+def test_decoder_raises_on_tensor():
+    """The banded decoder (no JAX path decodes on a mesh) raises on a
+    "tensor" axis, the one path that does (vid_img's passes and img_vid's
+    windows run on it: tests/test_torch_parallel_tensor_video.py and
+    tests/test_torch_parallel_tensor_windows.py)."""
     cfg = vq.VQGANConfig(embed_dim=8, n_embed=32, ch=16, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(4,),
                          resolution=16)
     model = vq.VQGAN(cfg)

@@ -411,6 +411,31 @@ def test_search_converges_where_reserved_levels_off(monkeypatch, budget_gib, per
     assert entry["true_max_size"] - entry["safe_max_size"] == 32
 
 
+def test_search_takes_the_next_rung_where_a_fit_meets_the_budget(monkeypatch):
+    """Where the best fit's allocated peak lies within a rung of the budget
+    (an H100's Adam probes, VGG-19 f32: 5952² took 81.83 GB of a 82.15 GB
+    budget), the fitted boundary lies just above the fit: the search probes
+    the next rung (3 probes: 2912, 5952, 5984 out of memory), not a quarter
+    octave up (7072, out of memory, 20 s on the card), on JAX's bracket."""
+    budget = 82145640448
+    step = _plateau(budget, 2310, 0.0)
+    port = []
+
+    def port_probe(*a, **k):
+        port.append(a[2])
+        return step(*a)
+
+    monkeypatch.setattr(jax_ms, "_compiled_step_bytes", lambda model, optimizer, size, **_: (
+        None if step(model, optimizer, size) is None else step(model, optimizer, size)["reserved"]))
+    monkeypatch.setattr(ms, "measure_step", port_probe)
+    kw = dict(models=("vgg19",), optimizers=("adam",), method="analysis", verbose=False, compute_dtype="float32",
+              budget_bytes=budget, start_size=4160)
+    got = ms.probe_max_sizes(**kw)
+    assert got == jax_ms.probe_max_sizes(**kw)
+    assert port == [2912, 5952, 5984]
+    assert (got["vgg19,adam,1"]["safe_max_size"], got["vgg19,adam,1"]["true_max_size"]) == (5952, 5984)
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_search_equals_jax_on_random_footprints(monkeypatch, seed):
     """Wherever the footprint is monotone in size the search ends on JAX's
