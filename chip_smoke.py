@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (maua_style_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only check_fused_gram,run_main_path,run_fused   # those phases alone
 
 Phases, each of which must pass (nothing is caught and passed over):
 
@@ -46,7 +47,9 @@ Phases, each of which must pass (nothing is caught and passed over):
    frames:2,tensor:2, and of one 1024x576 frame, (1, 32, 589824) … (1,
    256, 2304), and img_vid's groups: the static Grams (T_i, C_t, N) and
    whole-window diagonal blocks (1, T_i·C_t, N) of the 724 window (7
-   frames, or 4 + 3) and of the 256 CLI's 18-frame windows.
+   frames, or 4 + 3) and of the 256 CLI's 18-frame windows; and at phase
+   6q's: the bands of space:2 and the channel shares of tensor:2 at 256²
+   and 512², and VGG-19's style layers at 64² and 96².
 3. K2 check: the cost-volume kernel (csrc/correlation.cu) against its plain
    version, f32, at the five PWC levels of a 1024x576 and a 1920x1088 frame
    pair at B = 1 and B = 8, at one d = 3 and one (d = 20, s = 2) shape, at
@@ -63,7 +66,9 @@ Phases, each of which must pass (nothing is caught and passed over):
 4. img_img main path: ``maua_style_tpu_torch.style.main`` on synthetic
    images through the default 256..1448 pyramid with L-BFGS (history 100),
    VGG-19 at full width with seeded random weights, f32, --precision
-   highest.  Checks the PNGs, the loss logs and the K1 launch count; then a
+   highest.  Checks the PNGs, the loss logs and the K1 launch count, and
+   records the peak memory, the host seconds between scales and the
+   synchronising calls (phase 6q's run sets them beside its own); then a
    small input on the GPU and on the CPU, and a torch.profiler window of 5
    iterations at 1024² (report only).
 5. vid_img main path: ``style.main --transfer_type vid_img`` on a synthetic
@@ -269,6 +274,17 @@ Phases, each of which must pass (nothing is caught and passed over):
    ``--gpu 0,0 --mesh tensor:2`` cut to its 256 scale (phase 6's checks,
    K1's launches and the products against the schedule's formula; s per
    window beside phase 6's run).
+6q. img_img's pyramid with ``--fuse_scales`` (``StyleEngine.optimize_pyramid``,
+   every scale's tail on the device): phase 4's CLI run fused (five PNGs of
+   its shapes, each scale's loss falling, K1 475 launches; the wall, each
+   scale's ms/iter, the host seconds between scales, the peak memory and
+   the synchronising calls under ``torch.cuda.set_sync_debug_mode("warn")``
+   beside phase 4's); fused against the per-scale loop at 256/512/724, the
+   loop's later inits resized on the card as the fused run's (bit for bit),
+   and on space:2 and tensor:2 at 256/512 (rtol 1e-4, mean|Δ| 1e-2); and
+   the fused pyramid with histogram matching on at 64 and 96 px on the
+   card against ``--gpu c`` with one draw of the colour statistics (loss
+   logs within rtol 1e-3, aggregate u8 bars).
 7. Paths no other phase drives (report only; a failure fails the run):
    img_img at 512² with --compute_dtype bfloat16, --precision high,
    --optimizer adam and --original_colors, and a short vid_img with --init
@@ -940,7 +956,7 @@ def run_main_path(results: dict) -> dict[str, int]:
         torch.cuda.synchronize()
         scales.append({"hw": list(np.shape(init)[1:3]), "iters": num_iters,
                        "wall_s": time.perf_counter() - t0, "chunks": self.__dict__.pop("_chunk_ms", []),
-                       "log": self.last_loss_log})
+                       "steps": self.__dict__.pop("_steps_span"), "log": self.last_loss_log})
         return out
 
     def timed_run(self, *a, **kw):
@@ -948,7 +964,10 @@ def run_main_path(results: dict) -> dict[str, int]:
         t0 = time.perf_counter()
         out = orig_run(self, *a, **kw)
         torch.cuda.synchronize()
-        self.__dict__.setdefault("_chunk_ms", []).append(((time.perf_counter() - t0) * 1e3, a[-1]))
+        t1 = time.perf_counter()
+        self.__dict__.setdefault("_chunk_ms", []).append(((t1 - t0) * 1e3, a[-1]))
+        # the host clock at the scale's first step and after its last
+        self.__dict__["_steps_span"] = (self.__dict__.get("_steps_span", (t0,))[0], t1)
         return out
 
     argv = [
@@ -959,12 +978,18 @@ def run_main_path(results: dict) -> dict[str, int]:
         "--seed", "0", "--gpu", "0", "--verbose", "--print_iter", "10",
     ]
     StyleEngine.optimize, StyleEngine._run = timed_optimize, timed_run
+    syncs: dict = {}
     try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         reset_counts()
         t0 = time.perf_counter()
-        style.main(argv)
+        with counting_syncs(syncs):
+            style.main(argv)
         wall = time.perf_counter() - t0
         counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
     finally:
         StyleEngine.optimize, StyleEngine._run = orig_optimize, orig_run
     launches = counts["gram"]
@@ -995,11 +1020,39 @@ def run_main_path(results: dict) -> dict[str, int]:
         steady_ms, steady_n = sc["chunks"][-1]
         row = {"size": size, "hw": list(want_hw), "iters": iters, "wall_s": sc["wall_s"],
                "ms_per_iter_wall": sc["wall_s"] * 1e3 / iters, "ms_per_iter_last_chunk": steady_ms / steady_n,
+               "ms_per_iter_steps": sum(ms for ms, _ in sc["chunks"]) / iters,
                "first_total": first, "last_total": last}
         rows.append(row)
         print("scale", json.dumps(row))
-    results["main_path"] = {"wall_s": wall, "launches": counts, "scales": rows, "argv": argv}
+    between = [b["steps"][0] - a["steps"][1] for a, b in zip(scales, scales[1:])]
+    print(f"main path: peak {peak} B, host s between scales {json.dumps(between)}, "
+          f"synchronising calls {syncs['total']} ({json.dumps(syncs['by_line'])})")
+    results["main_path"] = {"wall_s": wall, "launches": counts, "scales": rows, "argv": argv, "peak_bytes": peak,
+                            "between_scales_s": between, "syncs": syncs}
     return counts
+
+
+@contextlib.contextmanager
+def counting_syncs(into: dict):
+    """While inside, ``torch.cuda.set_sync_debug_mode("warn")``; on exit
+    ``into`` holds the synchronising calls it flagged: ``total``, and
+    ``by_line``, the count by the Python line that made each (this
+    script's own synchronisations are not flagged: they wait on the whole
+    device)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield into
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    lines = collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                                if "synchroniz" in str(w.message))
+    into.update(total=sum(lines.values()), by_line=dict(lines.most_common()))
 
 
 def check_small_against_cpu(results: dict) -> None:
@@ -4653,9 +4706,314 @@ def run_img_vid_tensor(results: dict) -> dict[str, dict]:
     return counts
 
 
-def main() -> int:
+# phase 6q: img_img's pyramid with --fuse_scales (``StyleEngine.optimize_pyramid``):
+# phase 4's run fused; fused against the per-scale loop at the first three
+# scales (lr 0.1, as 6h's and 6j's gated runs); fused on two meshes of one card
+# standing in for two at the first two, 10 iterations a scale, each from the
+# unsharded run's init (from the random init L-BFGS at lr 0.1 follows the
+# rounding after about 13 at 256²); card against CPU with matching on
+FUSED_LOOP_SIZES, FUSED_LOOP_ITERS, FUSED_LR = (256, 512, 724), (20, 20, 10), 0.1
+FUSED_MESHES = (("space2", (("space", 2),)), ("tensor2", (("tensor", 2),)))
+FUSED_MESH_SIZES, FUSED_MESH_ITERS = (256, 512), (10, 10)
+FUSED_CPU_SIZES, FUSED_CPU_ITERS = (64, 96), (8, 4)
+# part 4's Adam learning rates: the gated one, then the CLI's (report only: its
+# steps of one u8 level flip where the gradient is float noise)
+FUSED_CPU_LRS = (0.1, 1.0)
+
+
+def fused_gram_inputs() -> list[tuple[int, int, int]]:
+    """K1's inputs on phase 6q that no other phase's check holds, in order:
+    the bands of space:2 and the channel shares of tensor:2 at 256² and
+    512², and VGG-19's style layers at 64² and 96² (the card-against-CPU
+    run).  Its other inputs are phase 4's."""
+    new = {s for side in FUSED_MESH_SIZES for _, axes in FUSED_MESHES for s in tensor_gram_shapes(side, axes)}
+    new |= {(1, c, n) for side in FUSED_CPU_SIZES for c, n in vgg_style_shapes(side)}
+    return sorted(new - set(similarity_gram_shapes()))
+
+
+def check_fused_gram(results: dict) -> dict:
+    """K1 at every new input of phase 6q, f32, with phase 2's bars and
+    times."""
     import torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for shape in fused_gram_inputs():
+        f = torch.relu(torch.randn(shape, device="cuda", generator=gen))
+        row = {"shape": list(shape), **measure_gram(f)}
+        rows.append(row)
+        print("fused gram", json.dumps(row))
+        del f
+    results["gram_fused"] = rows
+    return {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")} | {
+        "shapes": len(rows), "max_rel_err_f64": max(r["kernel_rel_err_f64"] for r in rows),
+        "slower_than_library": [r["shape"] for r in rows if r["kernel_ms"] >= r["library_ms"]]}
+
+
+def run_fused(results: dict) -> dict[str, int]:
+    """Phase 6q: img_img's pyramid with ``--fuse_scales``, every scale's
+    tail on the device (``StyleEngine.optimize_pyramid``).
+
+    1. Phase 4's CLI run (VGG-19 f32, L-BFGS history 100, 256→1448 at
+       20/20/20/20/10, random init, histogram matching on) with
+       ``--fuse_scales``: five PNGs of phase 4's shapes, each scale's loss
+       falling over its iterations, K1 exactly phase 4's 475 launches.
+       The wall, each scale's ms/iter, the host seconds between one
+       scale's last step and the next one's first, the peak memory and the
+       synchronising calls, beside phase 4's.
+    2. Fused against the per-scale loop at 256/512/724 (20/20/10),
+       ``--no_hist_match``, lr 0.1, one random init, under
+       ``cudnn.deterministic``, the loop's init of a later scale resized on
+       the card as the fused run resizes it: every scale's output and every
+       iteration's losses bit for bit, and the fixed bars (every total
+       within rtol 1e-4, each output within mean|Δ| 1e-2 of mean|p|).
+    3. The fused pyramid at 256/512, 10 iterations a scale, on space:2 and
+       tensor:2 (``--gpu 0,0``) against the unsharded fused run, every
+       scale from the same init (the unsharded run replays the mesh run's
+       resized inits: a mesh output 0.5% of mean|p| apart after 10
+       iterations at 256² started the 512 scale 4.5% apart after 10 more),
+       with the fixed bars; K1 5 per band or share an iteration + 5 a
+       capture.
+    4. Card against CPU (``--gpu c``): the fused pyramid with matching on
+       at 64 and 96 px (Adam, 8 and 4 iterations), both runs given one
+       draw of the colour statistics: at lr 0.1 the loss logs within rtol
+       1e-3, atol 1e-6 (as the CPU tests hold the port to JAX) and every
+       scale's PNG within the aggregate u8 bars (max ≤ 6, mean ≤ 0.5, ≤ 2%
+       of pixels past 2); at the CLI's lr 1 report only (Adam's first
+       steps are sign(g), one u8 level, and flip where g is float noise:
+       the 96 px scale read 3 levels in one run and 7 in another, PERF.md).
+
+    K1's inputs on the card runs of parts 2–4 are phase 4's or
+    ``fused_gram_inputs()``."""
+    import importlib
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from maua_style_tpu_torch import style
+    from maua_style_tpu_torch.engine import StyleEngine
+    from maua_style_tpu_torch.engine.optimize import to_nchw, to_nhwc
+    from maua_style_tpu_torch.ops import gram as G
+    from maua_style_tpu_torch.ops.resize import resize_bilinear, scale_shape
+
+    pipeline = importlib.import_module("maua_style_tpu_torch.pipelines.img_img")
+    run_dir = os.path.join(OUT, "fused")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    c_path, s_path = write_inputs(run_dir)
+    pyramids, loops, spans, seen = [], [], [], set()
+
+    def timed_run(fn, self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter(), a[5]))
+        return out
+
+    def recorded_pyramid(fn, self, *a, **kw):
+        outs = fn(self, *a, **kw)
+        pyramids.append((outs, self.last_loss_log))
+        return outs
+
+    def recorded_optimize(fn, self, *a, **kw):
+        out = fn(self, *a, **kw)
+        loops.append((out, self.last_loss_log))
+        return out
+
+    def argv(out, sizes, iters, *extra):
+        return ["--content", c_path, "--style", s_path, "--output_dir", os.path.join(run_dir, out),
+                "--image_sizes", ",".join(map(str, sizes)), "--num_iters", ",".join(map(str, iters)),
+                "--lbfgs_num_correction", "100", "--model_file", "vgg19", "--allow_random_weights",
+                "--precision", "highest", "--compute_dtype", "float32", "--seed", "0", *extra]
+
+    def apart_from(outs, log, refs, ref_log):
+        """Every iteration's total loss (rtol) and each scale's output
+        (mean|Δ| over mean|p|, max|Δ|) against a reference run's."""
+        a, b = log.sum(axis=1), ref_log.sum(axis=1)
+        rtol = np.abs(a - b) / np.abs(b)
+        return {"totals_rtol": float(rtol.max()), "totals_rtol_by_iteration": rtol.tolist(),
+                "outputs": [{"mean_abs_rel": float(np.abs(o - r).mean() / np.abs(r).mean()),
+                             "max_abs": float(np.abs(o - r).max())} for o, r in zip(outs, refs)]}
+
+    summary = {}
+    # 1. phase 4's run, fused
+    with patched((StyleEngine, "_run", timed_run), (StyleEngine, "optimize_pyramid", recorded_pyramid)):
+        syncs: dict = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        with counting_syncs(syncs):
+            style.main(argv("main", SIZES, ITERS, "--optimizer", "lbfgs", "--gpu", "0", "--verbose",
+                            "--print_iter", "10", "--fuse_scales"))
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+    expected = sum(STYLE_LAYERS * (it + 1) for it in ITERS)
+    if counts["gram"] != expected or len(pyramids) != 1 or len(spans) != len(SIZES):
+        fail(f"fused: K1 {counts['gram']} (expected {expected}), {len(pyramids)} pyramid(s), {len(spans)} step runs")
+    _, log = pyramids.pop()
+    if log.shape[0] != sum(ITERS) or not np.isfinite(log).all():
+        fail(f"fused: loss log {log.shape} not finite or not {sum(ITERS)} iterations")
+    rows, start = [], 0
+    main = results["main_path"]
+    for size, iters, (t0, t1, n), ref in zip(SIZES, ITERS, spans, main["scales"]):
+        png = os.path.join(run_dir, "main", f"content_style_{size}.png")
+        want_hw = tuple(scale_shape((1024, 1024), size / 1024))
+        if not os.path.exists(png):
+            fail(f"fused: missing {png}")
+        with Image.open(png) as img:
+            if (img.height, img.width) != want_hw:
+                fail(f"fused: {png} is {img.height}x{img.width}, expected {want_hw}")
+        first, last = float(log[start].sum()), float(log[start + iters - 1].sum())
+        start += iters
+        if n != iters or not last < first:
+            fail(f"fused: scale {size}: {n} steps, last total {last:g} not below first {first:g}")
+        rows.append({"size": size, "iters": iters, "ms_per_iter": (t1 - t0) * 1e3 / n,
+                     "phase4_ms_per_iter": ref["ms_per_iter_steps"], "first_total": first, "last_total": last})
+    between = [b[0] - a[1] for a, b in zip(spans, spans[1:])]
+    summary["main"] = {"wall_s": wall, "phase4_wall_s": main["wall_s"], "scales": rows, "between_scales_s": between,
+                       "phase4_between_scales_s": main["between_scales_s"], "peak_bytes": peak,
+                       "phase4_peak_bytes": main["peak_bytes"], "syncs": syncs, "phase4_syncs": main["syncs"],
+                       "launches": counts}
+    print("fused: phase 4's run with --fuse_scales beside phase 4's", json.dumps(summary["main"]))
+    shutil.rmtree(os.path.join(run_dir, "main"))
+
+    # 2. fused against the loop; 3. fused on meshes
+    loop_args = ("--optimizer", "lbfgs", "--learning_rate", str(FUSED_LR), "--no_hist_match")
+    engine_module = importlib.import_module("maua_style_tpu_torch.engine.optimize")
+
+    def pyramid(out, sizes, iters, *extra):
+        with patched((StyleEngine, "optimize_pyramid", recorded_pyramid)):
+            style.main(argv(out, sizes, iters, *loop_args, "--fuse_scales", *extra))
+        return pyramids.pop()
+
+    def resized_on_card(fn, x, size=None, scale_factor=None):
+        """The loop's init of a later scale resized as ``optimize_pyramid``
+        resizes the previous output: NCHW on the card (the content's
+        pre-scaling, by ``scale_factor``, stays on the host in both)."""
+        if size is None:
+            return fn(x, scale_factor=scale_factor)
+        return to_nhwc(resize_bilinear(to_nchw(x, "cuda"), size=size))
+
+    def inits_into(inits):
+        """A ``patched`` wrapper of the engine's ``resize_bilinear`` that keeps
+        each later scale's resized init (img_img's fused run resizes nothing
+        else there)."""
+        def wrapper(fn, x, size):
+            inits.append(fn(x, size=size).clone())
+            return inits[-1]
+
+        return wrapper
+
+    def within(apart):
+        """``apart`` with the fixed bars: every total within rtol 1e-4, each
+        scale's output within mean|Δ| 1e-2 of mean|p|."""
+        ok = apart["totals_rtol"] <= 1e-4 and all(o["mean_abs_rel"] <= 1e-2 for o in apart["outputs"])
+        return {**apart, "ok": ok}
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with patched((G._GramFn, "apply", gram_inputs_into(seen))):
+            with patched((StyleEngine, "optimize", recorded_optimize),
+                         (pipeline, "resize_bilinear_np", resized_on_card)):
+                t0 = time.perf_counter()
+                style.main(argv("loop", FUSED_LOOP_SIZES, FUSED_LOOP_ITERS, *loop_args, "--gpu", "0"))
+                loop_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fused_outs, fused_log = pyramid("fused", FUSED_LOOP_SIZES, FUSED_LOOP_ITERS, "--gpu", "0")
+            fused_s = time.perf_counter() - t0
+            loop_outs, loop_logs = zip(*loops)
+            # every scale starts from the same init in both: bit for bit
+            same = bool(all(np.array_equal(f, lo) for f, lo in zip(fused_outs, loop_outs))
+                        and np.array_equal(fused_log, np.concatenate(loop_logs)))
+            summary["vs_loop"] = {**within(apart_from(fused_outs, fused_log, loop_outs, np.concatenate(loop_logs))),
+                                  "bit_for_bit": same, "loop_wall_s": loop_s, "fused_wall_s": fused_s}
+            print("fused: against the per-scale loop", json.dumps(summary["vs_loop"]))
+            # each mesh against the unsharded run, every scale from the same
+            # init: the later scales' from the mesh run's own gather and resize
+            summary["meshes"] = {}
+            for key, axes in FUSED_MESHES:
+                inits = []
+                reset_counts()
+                with patched((engine_module, "resize_bilinear", inits_into(inits))):
+                    outs, mlog = pyramid(key, FUSED_MESH_SIZES, FUSED_MESH_ITERS, "--gpu", "0,0", "--mesh",
+                                         mesh_arg(axes))
+                launches = read_counts()
+                want = sum(STYLE_LAYERS * (2 * it + 1) for it in FUSED_MESH_ITERS)
+                if launches != {"gram": want, "correlation": 0}:
+                    fail(f"fused on {key}: launches {launches}, expected K1 {want}")
+                with patched((engine_module, "resize_bilinear", lambda fn, x, size, _it=iter(inits): next(_it))):
+                    ref_outs, ref_log = pyramid(f"{key}_unsharded", FUSED_MESH_SIZES, FUSED_MESH_ITERS, "--gpu", "0")
+                summary["meshes"][key] = {**within(apart_from(outs, mlog, ref_outs, ref_log)), "launches": launches}
+                print(f"fused on {key} against unsharded", json.dumps(summary["meshes"][key]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if not same:
+        fail("fused: a scale differs from the loop's started from the same init (bit for bit)")
+    for what, apart in (("the loop", summary["vs_loop"]), *summary["meshes"].items()):
+        if not apart["ok"]:
+            fail(f"fused against {what}: {apart} past its bars")
+
+    # 4. card against CPU, one draw of the colour statistics in both
+    draw = pipeline.style_hist_stats
+
+    def replayed(source, mode="avg"):
+        return draw(source, mode=mode, rng=np.random.default_rng(0))
+
+    summary["card_vs_cpu"] = {}
+    pipeline.style_hist_stats = replayed
+    try:
+        for lr in FUSED_CPU_LRS:
+            cpu_args = ("--optimizer", "adam", "--learning_rate", str(lr), "--fuse_scales")
+            with patched((G._GramFn, "apply", gram_inputs_into(seen)), (StyleEngine, "optimize_pyramid",
+                                                                        recorded_pyramid)):
+                style.main(argv(f"card{lr}", FUSED_CPU_SIZES, FUSED_CPU_ITERS, *cpu_args, "--gpu", "0"))
+            t0 = time.perf_counter()
+            with patched((StyleEngine, "optimize_pyramid", recorded_pyramid)):
+                style.main(argv(f"cpu{lr}", FUSED_CPU_SIZES, FUSED_CPU_ITERS, *cpu_args, "--gpu", "c"))
+            cpu_s = time.perf_counter() - t0
+            (_, card_log), (_, cpu_log) = pyramids[-2:]
+            del pyramids[-2:]
+            drift = []
+            for size in FUSED_CPU_SIZES:
+                png = f"content_style_{size}.png"
+                a, b = (np.asarray(Image.open(os.path.join(run_dir, f"{d}{lr}", png))).astype(int)
+                        for d in ("card", "cpu"))
+                d = np.abs(a - b)
+                drift.append({"size": size, "max": int(d.max()), "mean": float(d.mean()),
+                              "past_2": float((d > 2).mean())})
+            summary["card_vs_cpu"][f"lr {lr}"] = {
+                "u8": drift, "loss_rtol": float((np.abs(card_log - cpu_log) / np.abs(cpu_log).clip(1e-30)).max()),
+                "losses_close": bool(np.allclose(card_log, cpu_log, rtol=1e-3, atol=1e-6)), "cpu_s": cpu_s}
+    finally:
+        pipeline.style_hist_stats = draw
+    print("fused: card against CPU", json.dumps(summary["card_vs_cpu"]))
+    gated = summary["card_vs_cpu"][f"lr {FUSED_CPU_LRS[0]}"]
+    if not (gated["losses_close"] and all(d["max"] <= 6 and d["mean"] <= 0.5 and d["past_2"] <= 0.02
+                                          for d in gated["u8"])):
+        fail(f"fused: card against CPU at lr {FUSED_CPU_LRS[0]} past the bars (loss log rtol 1e-3, u8): {gated}")
+    checked = {(1, c, n) for size in SIZES for c, n in vgg_style_shapes(size)} | set(fused_gram_inputs())
+    if seen - checked:
+        fail(f"fused: K1 inputs {sorted(seen - checked)} not among phase 2's")
+    results["fused"] = summary
+    shutil.rmtree(run_dir)
+    return counts
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    import torch
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU (module docstring).")
+    parser.add_argument("--only", default="", help="comma-separated phase functions to run alone, in this order, "
+                        "after the builds (e.g. check_fused_gram,run_main_path,run_fused); prints no kernels or ok line")
+    only = [name for name in parser.parse_args(argv).only.split(",") if name]
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4688,18 +5046,28 @@ def main() -> int:
     results = {"card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
                "cuda": torch.version.cuda, "build_s": build_s, "ptxas_correlation": ptxas}
     try:
-        gram, corr = run_phases(results)
+        if only:
+            for name in only:
+                t0 = time.perf_counter()
+                globals()[name](results)
+                print(f"chip_smoke: {name} took {time.perf_counter() - t0:.1f} s; the allocator keeps "
+                      f"{release_cached()} B unused")
+        else:
+            gram, corr = run_phases(results)
     finally:
         # the video runs' artifacts (hundreds of MB) go even when a phase fails
         for d in ("vid_img", "vid_img_unflow_liteflownet", "stacked", "img_vid", "flags", "nca", "clip_vqgan",
                   "clip_vqgan_rn50", "clip_video_style", "similarity", "fidelity", "space", "frames", "tuner_scale",
                   *(f"vid_img_{key}" for key, _, _ in MESH_VID), "vid_mesh_frames", "nin_space", "tensor",
                   *(f"img_vid_{key}" for key, _, _ in IV_MESH), f"vid_img_{VID_TENSOR_CLI[0]}", "vid_tensor_frames",
-                  f"img_vid_{IV_TENSOR_CLI[0]}"):
+                  f"img_vid_{IV_TENSOR_CLI[0]}", "fused"):
             shutil.rmtree(os.path.join(OUT, d), ignore_errors=True)
         with open(os.path.join(OUT, "results.json"), "w") as f:
             json.dump(results, f, indent=1)
 
+    if only:
+        print(f"chip_smoke: {', '.join(only)} passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [gram, corr]}))
     print(smi)
@@ -4750,6 +5118,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     gram["nin_shapes"] = timed("check_nin_gram", check_nin_gram, results)
     gram["tensor_shapes"] = timed("check_tensor_gram", check_tensor_gram, results)
     gram["tensor_video_shapes"] = timed("check_tensor_video_gram", check_tensor_video_gram, results)
+    gram["fused_shapes"] = timed("check_fused_gram", check_fused_gram, results)
     corr = timed("check_correlation", check_correlation, results)
     img = timed("run_main_path", run_main_path, results)
     timed("check_small_against_cpu", check_small_against_cpu, results)
@@ -4793,6 +5162,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
     tensor_counts = timed("run_tensor", run_tensor, results)
     vid_tensor_counts = timed("run_vid_tensor", run_vid_tensor, results)
     img_vid_tensor_counts = timed("run_img_vid_tensor", run_img_vid_tensor, results)
+    fused_counts = timed("run_fused", run_fused, results)
     timed("drive_flags", drive_flags, results)
     timed("check_determinism", check_determinism, results)
     timed("run_tuner", run_tuner, results)  # last: its probes take the card's memory to its limit
@@ -4802,7 +5172,7 @@ def run_phases(results: dict) -> tuple[dict, dict]:
              "clip_vqgan_rn50": rn_counts, "clip_video_style": cvs_counts, "similarity": sim_counts,
              "fidelity": fid_counts, "space": space_counts, "frames": frames_counts, **vid_mesh_counts,
              **img_vid_mesh_counts, **nin_counts, "vqgan_space2": vqgan_counts, **tensor_counts, **vid_tensor_counts,
-             **img_vid_tensor_counts}
+             **img_vid_tensor_counts, "fused_pyramid": fused_counts}
     gram["launches"] = img["gram"]
     gram["launches_by_path"] = {k: v["gram"] for k, v in paths.items()}
     corr["launches"] = vid["correlation"]

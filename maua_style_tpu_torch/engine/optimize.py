@@ -67,9 +67,14 @@ shares on "tensor" (``_window_layout``; JAX shards the window's frames and
 channels), the losses summed from the pieces
 (``losses.evaluate_window_losses``: the whole-window Gram by groups of
 frame share and channel share, against the target permuted once into
-group order).  JAX's fused pyramid
-program (``optimize_pyramid``) only saves TPU executable loads and is not
-ported.
+group order).
+
+``optimize_pyramid`` (``--fuse_scales``) runs img_img's whole pyramid with
+every scale's tail on the device, as JAX's fused program does: each
+scale's init is the previous output resized on the device, and with
+colour statistics both that init and each output are recoloured there by
+``match_histogram_device``, so its artifacts differ from the per-scale
+loop's, which matches histograms on the host.
 """
 
 from __future__ import annotations
@@ -570,6 +575,66 @@ class StyleEngine:
             shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
         self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
         return to_nhwc(gather(pastiche))
+
+    def optimize_pyramid(
+        self,
+        contents_per_scale: Sequence,
+        styles_per_scale: Sequence[Sequence],
+        init,
+        schedule: Sequence[tuple[tuple[int, int], int]],
+        *,
+        blend_weights: Sequence[float] | None = None,
+        hist_stats: tuple | None = None,
+    ) -> list[np.ndarray]:
+        """img_img's whole pyramid in one device-resident run (``--fuse_scales``,
+        JAX optimize.py:345-455): per scale ((h, w), num_iters) of
+        ``schedule``, the init (``init`` at the first scale, else the
+        previous output resized on the device and, with ``hist_stats``,
+        recoloured by ``match_histogram_device``), the targets of
+        ``contents_per_scale[s]`` and ``styles_per_scale[s]`` (both pre-scaled
+        on the host, as the per-scale loop scales them), the strength scale
+        from those targets, ``num_iters`` steps from a fresh optimiser state
+        with no chunking, and the output recoloured with ``hist_stats``.  The
+        previous output stays on the device; each scale's optimiser state and
+        targets are freed before the next scale starts.  Returns each
+        scale's output as a host array, all copied at the end;
+        ``last_loss_log`` is the scales' logs one after another, (Σ
+        num_iters, n_losses).
+
+        On a mesh each scale's init is set up whole on the first device and
+        cut with that scale's ``_band_layout`` (band heights change with the
+        scale); the content targets are captured piece by piece and the
+        output gathered before its recolouring."""
+        n_styles = len(styles_per_scale[0])
+        blend = list(blend_weights) if blend_weights is not None else [1.0 / max(n_styles, 1)] * n_styles
+        hist = None if hist_stats is None else [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                                                for a in hist_stats]
+        opt = self._make_optimizer()
+        outs, logs = [], []
+        for s, ((h, w), num_iters) in enumerate(schedule):
+            h, w = int(h), int(w)
+            if s == 0:
+                p = to_nchw(init, self.device)
+            else:
+                p = resize_bilinear(outs[-1], size=(h, w))
+                if hist is not None:
+                    p = match_histogram_device(p, *hist)
+            try:
+                split, gather = self._band_layout(p.shape)
+            except ValueError as e:
+                raise ValueError(f"scale {s} ({h}x{w}) cannot be cut on mesh {self.mesh.axes}: {e}") from e
+            targets = {"content": self.content_targets(contents_per_scale[s]),
+                       "style": capture_style_targets(self._extract, [to_nchw(x, self.device) for x in styles_per_scale[s]],
+                                                      blend, self.loss_cfg)}
+            scale = dict(self._strength_scale(targets))
+            p = split(p)
+            p, state, log = self._run(p, opt, opt.init(p), targets, scale, int(num_iters))
+            del state, targets  # one scale's L-BFGS history and activations at a time
+            out = gather(p)
+            outs.append(match_histogram_device(out, *hist) if hist is not None else out)
+            logs.append(log)
+        self.last_loss_log = torch.cat(logs).cpu().numpy()
+        return [to_nhwc(o) for o in outs]
 
     def _band_layout(self, shape) -> tuple[Callable, Callable]:
         """(split, gather) of a (B, C, H, W) pastiche-sized tensor, or of a

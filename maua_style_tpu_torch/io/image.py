@@ -21,12 +21,22 @@ CAFFE_MEAN = np.array([103.939, 116.779, 123.68], dtype=np.float32)  # B, G, R
 IMAGE_EXTENSIONS = (".png", ".jpeg", ".jpg", ".tiff")
 
 
+def _fetch(path_or_url: str):
+    """Open a local path or an http(s) URL for reading (reference
+    utils.py:70-73)."""
+    if str(path_or_url).startswith(("http://", "https://")):
+        import urllib.request
+
+        return urllib.request.urlopen(path_or_url)
+    return open(path_or_url, "rb")
+
+
 def preprocess(image_path, size: tuple[int, int] | None = None) -> np.ndarray:
     """Load an image -> (1, H, W, 3) float32 BGR mean-subtracted.
 
     The string "random" yields a min-max-normalised gaussian noise image
     (reference load.py:22-25); an ndarray input (H, W, 3) in [0, 255] RGB is
-    preprocessed directly.  Only local paths are read.
+    preprocessed directly; a path may be an http(s) URL.
     """
     if isinstance(image_path, str) and image_path == "random":
         image = np.random.normal(size=(256, 256, 3)).astype(np.float32)
@@ -36,7 +46,7 @@ def preprocess(image_path, size: tuple[int, int] | None = None) -> np.ndarray:
     elif isinstance(image_path, np.ndarray):
         rgb = np.asarray(image_path, np.float32)
     else:
-        with Image.open(str(image_path)) as img:
+        with _fetch(str(image_path)) as f, Image.open(f) as img:
             pil = img.convert("RGB")
         if size is not None:
             pil = pil.resize((size[1], size[0]), Image.BILINEAR)
@@ -47,8 +57,9 @@ def preprocess(image_path, size: tuple[int, int] | None = None) -> np.ndarray:
 
 def load_u8(image_path) -> np.ndarray:
     """Load an image as raw (H, W, 3) uint8 RGB, the per-frame transfer
-    format of the vid_img frame path (ops/frame_ops)."""
-    with Image.open(str(image_path)) as img:
+    format of the vid_img frame path (ops/frame_ops); a path may be an
+    http(s) URL."""
+    with _fetch(str(image_path)) as f, Image.open(f) as img:
         return np.asarray(img.convert("RGB"))
 
 

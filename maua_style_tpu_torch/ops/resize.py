@@ -10,6 +10,8 @@ reproduces it).
   (``recompute_scale_factor=False`` keeps the quirk).
 - ``resize_bilinear_np``: host (..., H, W, C) numpy arrays, a 2-tap gather
   per axis.
+- ``resize_nearest``: NCHW tensors, nearest neighbour at half-pixel centres
+  (``jax.image.resize(method="nearest")``, torch's ``"nearest-exact"``).
 """
 
 from __future__ import annotations
@@ -74,4 +76,11 @@ def resize_bilinear_np(x: np.ndarray, size: tuple[int, int] | None = None, scale
     return out.astype(x.dtype)
 
 
-__all__ = ["resize_bilinear", "resize_bilinear_np", "scale_shape"]
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """Resize (B, C, H, W) tensors to ``size`` (H, W), each output pixel the
+    input pixel under its centre: floor((i + 0.5) · in / out).  Torch's
+    ``"nearest"`` takes floor(i · in / out) instead."""
+    return F.interpolate(x, size=tuple(int(s) for s in size), mode="nearest-exact")
+
+
+__all__ = ["resize_bilinear", "resize_bilinear_np", "resize_nearest", "scale_shape"]

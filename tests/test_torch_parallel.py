@@ -393,7 +393,7 @@ def _two_cards(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
 
 
-def test_engine_paths_left_unsharded_raise():
+def test_engine_paths_run_on_tensor_and_nin_meshes():
     """img_vid's windows on "space × tensor" and "frames × tensor" meshes
     (items 18c and 18e3; they raised before 18e3) now run, finite and of
     the asked shape (their results against JAX's and unsharded runs:
