@@ -1,0 +1,1 @@
+"""Metric readers, one file each, found by the metric's name."""
