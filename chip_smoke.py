@@ -897,19 +897,22 @@ def seconds_into(spans: dict, name: str):
     return wrapper
 
 
-def reset_counts() -> None:
-    from maua_style_tpu_torch.ops import correlation as K
-    from maua_style_tpu_torch.ops import gram as G
+_COUNTS = ("gram.launches", "correlation.launches")
+_counts_from: dict[str, int] = {}
 
-    G.gram.launches = 0
-    K.correlation.launches = 0
+
+def reset_counts() -> None:
+    from maua_style_tpu_torch import trace
+
+    _counts_from.update({name: trace.counter(name) for name in _COUNTS})
 
 
 def read_counts() -> dict[str, int]:
-    from maua_style_tpu_torch.ops import correlation as K
-    from maua_style_tpu_torch.ops import gram as G
+    """The kernels' launches since ``reset_counts`` (differences of the
+    port's process-wide counters)."""
+    from maua_style_tpu_torch import trace
 
-    return {"gram": G.gram.launches, "correlation": K.correlation.launches}
+    return {name.split(".")[0]: trace.counter(name) - _counts_from.get(name, 0) for name in _COUNTS}
 
 
 def write_inputs(d: str) -> tuple[str, str]:

@@ -137,7 +137,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint_every", type=int, default=0,
                         help="run-state checkpoint interval in iterations (0=off); resumes optimizer state across crashes")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="write a torch.profiler chrome trace of one optimization chunk into this directory")
+                        help="trace the job: a torch.profiler chrome trace of each optimization's first chunk "
+                             "and the job's spans (spans.json) into this directory")
     parser.add_argument("--fuse_scales", action="store_true",
                         help="accepted for CLI compat; the per-scale loop runs (with a warning)")
     parser.add_argument("--load_args", type=str, default=None)

@@ -87,6 +87,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..losses import (
     LossConfig,
     capture_content_targets,
@@ -119,13 +120,18 @@ _TF32 = {"highest": False, "high": True, "default": True}
 
 def to_nchw(x, device) -> torch.Tensor:
     """(B, H, W, C) host array -> (B, C, H, W) f32 tensor on ``device``."""
-    arr = np.ascontiguousarray(np.transpose(np.asarray(x, np.float32), (0, 3, 1, 2)))
-    return torch.from_numpy(arr).to(device)
+    with trace.span("engine.copy_in"):
+        arr = np.ascontiguousarray(np.transpose(np.asarray(x, np.float32), (0, 3, 1, 2)))
+        trace.count("engine.h2d_bytes", arr.nbytes)
+        return torch.from_numpy(arr).to(device)
 
 
 def to_nhwc(t: torch.Tensor) -> np.ndarray:
     """(B, C, H, W) tensor -> (B, H, W, C) f32 host array."""
-    return t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+    with trace.span("engine.copy_out"):
+        out = t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+        trace.count("engine.d2h_bytes", out.nbytes)
+        return out
 
 
 def apply_precision(precision: str) -> None:
@@ -189,7 +195,10 @@ class StyleEngine:
         self.band_align = spatial.band_alignment(self.spec) if self.band_devices else 1
         if self.shares > 1 and any(l.kind == "softmax" for l in self.spec.layers):
             raise NotImplementedError(f"mesh {mesh.axes}: a softmax over channel shares is not split")
-        self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
+        with trace.span("weights.upload"):
+            self.extractor = Extractor(self.spec, params).to(device=self.device, dtype=compute_dtype).eval()
+            trace.count("weights.uploads")
+            trace.count("weights.upload_bytes", sum(w.nbytes for w in self.extractor.parameters()))
         self.optimizer_name = optimizer
         self.learning_rate = learning_rate
         self.lbfgs_history = lbfgs_history
@@ -238,7 +247,8 @@ class StyleEngine:
         """The content activations of a (1, H, W, 3) image; on a "space"
         mesh a list of each band's, captured band by band (on a "tensor"
         axis each piece's)."""
-        return self._content_targets(to_nchw(content, self.device))
+        with trace.span("engine.capture", kind="content"):
+            return self._content_targets(to_nchw(content, self.device))
 
     def _content_targets(self, x: torch.Tensor) -> dict:
         """``content_targets`` of a (B, 3, H, W) tensor on the device."""
@@ -266,17 +276,22 @@ class StyleEngine:
         return out
 
     def style_targets(self, styles: Sequence, blend_weights: Sequence[float]) -> dict[str, torch.Tensor]:
-        # content-addressed cache of the blended Gram targets
-        key = tuple((np.shape(s), float(bw), hash(np.asarray(s).tobytes())) for s, bw in zip(styles, blend_weights))
-        hit = self._style_target_cache.get(key)
-        if hit is not None:
-            return hit
-        targets = capture_style_targets(
-            self._extract, [to_nchw(s, self.device) for s in styles], blend_weights, self.loss_cfg
-        )
-        self._style_target_cache.clear()
-        self._style_target_cache[key] = targets
-        return targets
+        with trace.span("engine.capture", kind="style"):
+            # content-addressed cache of the blended Gram targets
+            with trace.span("engine.style_key"):
+                key = tuple((np.shape(s), float(bw), hash(np.asarray(s).tobytes()))
+                            for s, bw in zip(styles, blend_weights))
+            hit = self._style_target_cache.get(key)
+            if hit is not None:
+                trace.count("engine.style_cache.hit")
+                return hit
+            trace.count("engine.style_cache.miss")
+            targets = capture_style_targets(
+                self._extract, [to_nchw(s, self.device) for s in styles], blend_weights, self.loss_cfg
+            )
+            self._style_target_cache.clear()
+            self._style_target_cache[key] = targets
+            return targets
 
     def style_video_targets(
         self, style_videos: Sequence, blend_weights: Sequence[float], gram_frame_window: int
@@ -364,7 +379,8 @@ class StyleEngine:
 
             def loss_of(p):
                 acts = {l: torch.cat([fixed[l][:fo], a, fixed[l][fo:]]) for l, a in self._extract(p, cfg.all_layers).items()}
-                return evaluate_losses(torch.cat([front, p, end]), acts, targets, cfg, scale)
+                with trace.span("losses"):
+                    return evaluate_losses(torch.cat([front, p, end]), acts, targets, cfg, scale)
 
             def assemble(p):
                 return torch.cat([front, p, end])
@@ -376,21 +392,27 @@ class StyleEngine:
                         functools.partial(evaluate_banded_losses, shares=self.shares) if banded else evaluate_losses)
 
             def loss_of(p):
-                return evaluate(p, extract(p, cfg.all_layers), targets, cfg, scale)
+                acts = extract(p, cfg.all_layers)
+                with trace.span("losses"):
+                    return evaluate(p, acts, targets, cfg, scale)
 
         banded = isinstance(p, list)
         for _ in range(n_iters):
-            p = [b.detach().requires_grad_(True) for b in p] if banded else p.detach().requires_grad_(True)
-            total, per = loss_of(p)
-            # an empty channel share's piece (tensor:4 over 3 colours) may reach no term
-            empty = banded and any(b.numel() == 0 for b in p)
-            grads = [torch.zeros_like(x) if g is None else g.float()
-                     for g, x in zip(torch.autograd.grad(total, p, allow_unused=empty), p if banded else [p])]
-            if mask is not None:
-                grads = [g * m for g, m in zip(grads, mask if banded else [mask])]
-            upd, opt_state = opt.update(grads if banded else grads[0], opt_state)
-            p = [b.detach() + u for b, u in zip(p, upd)] if banded else p.detach() + upd
-            logs.append(per.detach())
+            with trace.span("engine.step"):
+                p = [b.detach().requires_grad_(True) for b in p] if banded else p.detach().requires_grad_(True)
+                total, per = loss_of(p)
+                # an empty channel share's piece (tensor:4 over 3 colours) may reach no term
+                empty = banded and any(b.numel() == 0 for b in p)
+                with trace.span("net.backward"):
+                    raw = torch.autograd.grad(total, p, allow_unused=empty)
+                grads = [torch.zeros_like(x) if g is None else g.float() for g, x in zip(raw, p if banded else [p])]
+                if mask is not None:
+                    grads = [g * m for g, m in zip(grads, mask if banded else [mask])]
+                with trace.span("optimizer.update"):
+                    upd, opt_state = opt.update(grads if banded else grads[0], opt_state)
+                p = [b.detach() + u for b, u in zip(p, upd)] if banded else p.detach() + upd
+                logs.append(per.detach())
+            trace.count("engine.iterations")
             yield
         p = assemble(p)
         one = p[0] if banded else p
@@ -438,7 +460,8 @@ class StyleEngine:
                         l: [torch.cat([fx[:a], m, fx[a:]]) for fx, m in zip(fixed[l], act[l])] for l in layers}
                 full.append(bands)
                 acts.append(act)
-            return evaluate_window_losses(full, acts, targets, self.loss_cfg, scale, self.shares)
+            with trace.span("losses"):
+                return evaluate_window_losses(full, acts, targets, self.loss_cfg, scale, self.shares)
 
         def assemble(p):
             return [b for bands, _ in windowed(p) for b in bands]
@@ -470,13 +493,15 @@ class StyleEngine:
         while done < num_iters:
             this = min(chunk, num_iters - done)
             kw = dict(mask=mask, frozen=frozen, window=window)
-            if profile_dir is not None:
-                p, st, log = self._profiled_run(profile_dir, p, opt, st, targets, scale, this, **kw)
-                profile_dir = None
-            else:
-                p, st, log = self._run(p, opt, st, targets, scale, this, **kw)
+            # the chunk's steps and its log's copy, which waits for them
+            with trace.span("engine.chunk", iters=this):
+                if profile_dir is not None:
+                    p, st, log = self._profiled_run(profile_dir, p, opt, st, targets, scale, this, **kw)
+                    profile_dir = None
+                else:
+                    p, st, log = self._run(p, opt, st, targets, scale, this, **kw)
+                logs.append(log.cpu().numpy())
             done += this
-            logs.append(log.cpu().numpy())
             if print_iter > 0 and (done // print_iter > (done - this) // print_iter or done == num_iters):
                 # fire on crossing each print_iter boundary (reference optim.py:228-229)
                 print(f"Iteration {done} / {num_iters}, Loss: {float(logs[-1][-1].sum()):g}")
@@ -513,7 +538,7 @@ class StyleEngine:
         pastiche (img_vid: and the whole output), the optimizer state, the
         window and the iteration at every chunk end and resumes with the
         optimizer state intact.  ``profile_dir``: a ``torch.profiler``
-        chrome trace of the first chunk.
+        chrome trace of the first chunk (``_profiled_run``).
 
         vid_img's host path (``--original_colors``) passes its temporal
         target as ``temporal_warp=(prev_frame, warp_map)``, warped here on
@@ -526,55 +551,59 @@ class StyleEngine:
         ``save_callback`` gets the window's pastiche numbered
         ``w * num_iters + done``.
         """
-        if transfer_type not in ("img_img", "vid_img", "img_vid"):
-            raise ValueError(f"unknown transfer_type {transfer_type!r}")
-        blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
-        loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every, profile_dir=profile_dir)
-        targets = {"content": self.content_targets(content)}
-        weights = None if temporal_weights is None else to_nchw(temporal_weights, self.device)
-        if temporal_warp is not None:
-            src, wmap = temporal_warp
-            warped = grid_sample(to_nchw(src, self.device), _on(np.asarray(wmap, np.float32), self.device))
-            targets["temporal"] = self._temporal_targets(warped, weights)
-        elif temporal_target is not None:
-            targets["temporal"] = self._temporal_targets(to_nchw(temporal_target, self.device), weights)
-        if transfer_type == "img_vid":
-            if gram_frame_window is None:
-                raise ValueError("img_vid needs gram_frame_window")
-            return self._optimize_windows(targets, styles, blend_weights, init, num_iters, int(gram_frame_window),
-                                          avg_frame_window, save_callback, run_checkpoint, loop)
+        with trace.span("engine.optimize"):
+            if transfer_type not in ("img_img", "vid_img", "img_vid"):
+                raise ValueError(f"unknown transfer_type {transfer_type!r}")
+            blend_weights = (list(blend_weights) if blend_weights is not None
+                             else [1.0 / max(len(styles), 1)] * len(styles))
+            loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every,
+                        profile_dir=profile_dir)
+            targets = {"content": self.content_targets(content)}
+            weights = None if temporal_weights is None else to_nchw(temporal_weights, self.device)
+            if temporal_warp is not None:
+                src, wmap = temporal_warp
+                warped = grid_sample(to_nchw(src, self.device), _on(np.asarray(wmap, np.float32), self.device))
+                targets["temporal"] = self._temporal_targets(warped, weights)
+            elif temporal_target is not None:
+                targets["temporal"] = self._temporal_targets(to_nchw(temporal_target, self.device), weights)
+            if transfer_type == "img_vid":
+                if gram_frame_window is None:
+                    raise ValueError("img_vid needs gram_frame_window")
+                return self._optimize_windows(targets, styles, blend_weights, init, num_iters, int(gram_frame_window),
+                                              avg_frame_window, save_callback, run_checkpoint, loop)
 
-        targets["style"] = self.style_targets(styles, blend_weights)
-        scale = dict(self._strength_scale(targets))
-        pastiche = to_nchw(init, self.device)
-        split, gather = self._band_layout(pastiche.shape)
-        opt = self._make_optimizer()
-        # the state's pastiche-sized entries, kept band by band on a "space"
-        # mesh; run-states hold the single-device layout either way, so a
-        # banded run and an unbanded one resume each other's state
-        per_band = {k for k, v in opt.init([pastiche.to("meta")]).items() if isinstance(v, list)}
-        opt_state, done = None, 0
-        if run_checkpoint is not None:
-            restored = load_state(run_checkpoint, pastiche, opt.init(pastiche.to("meta")))
-            if restored is not None:
-                pastiche, whole_state, _, done = restored
-                opt_state = {k: split(v) if k in per_band else v for k, v in whole_state.items()}
-        if opt_state is None:
-            opt_state = opt.init(split(pastiche))
-
-        def after_chunk(p, st, done):
-            p = gather(p)
-            if save_callback is not None:
-                save_callback(to_nhwc(p), done)
+            targets["style"] = self.style_targets(styles, blend_weights)
+            scale = dict(self._strength_scale(targets))
+            pastiche = to_nchw(init, self.device)
+            split, gather = self._band_layout(pastiche.shape)
+            opt = self._make_optimizer()
+            # the state's pastiche-sized entries, kept band by band on a "space"
+            # mesh; run-states hold the single-device layout either way, so a
+            # banded run and an unbanded one resume each other's state
+            per_band = {k for k, v in opt.init([pastiche.to("meta")]).items() if isinstance(v, list)}
+            opt_state, done = None, 0
             if run_checkpoint is not None:
-                save_state(run_checkpoint, p, {k: gather(v) if k in per_band else v for k, v in st.items()}, 0, done)
+                restored = load_state(run_checkpoint, pastiche, opt.init(pastiche.to("meta")))
+                if restored is not None:
+                    pastiche, whole_state, _, done = restored
+                    opt_state = {k: split(v) if k in per_band else v for k, v in whole_state.items()}
+            if opt_state is None:
+                opt_state = opt.init(split(pastiche))
 
-        pastiche, _, logs = self._iterate(split(pastiche), opt, opt_state, targets, scale, num_iters, done, after_chunk,
-                                          **loop)
-        if run_checkpoint is not None:
-            shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
-        self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
-        return to_nhwc(gather(pastiche))
+            def after_chunk(p, st, done):
+                p = gather(p)
+                if save_callback is not None:
+                    save_callback(to_nhwc(p), done)
+                if run_checkpoint is not None:
+                    save_state(run_checkpoint, p, {k: gather(v) if k in per_band else v for k, v in st.items()}, 0,
+                               done)
+
+            pastiche, _, logs = self._iterate(split(pastiche), opt, opt_state, targets, scale, num_iters, done,
+                                              after_chunk, **loop)
+            if run_checkpoint is not None:
+                shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
+            self.last_loss_log = np.concatenate(logs, axis=0) if logs else None
+            return to_nhwc(gather(pastiche))
 
     def optimize_pyramid(
         self,
@@ -605,36 +634,39 @@ class StyleEngine:
         cut with that scale's ``_band_layout`` (band heights change with the
         scale); the content targets are captured piece by piece and the
         output gathered before its recolouring."""
-        n_styles = len(styles_per_scale[0])
-        blend = list(blend_weights) if blend_weights is not None else [1.0 / max(n_styles, 1)] * n_styles
-        hist = None if hist_stats is None else [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-                                                for a in hist_stats]
-        opt = self._make_optimizer()
-        outs, logs = [], []
-        for s, ((h, w), num_iters) in enumerate(schedule):
-            h, w = int(h), int(w)
-            if s == 0:
-                p = to_nchw(init, self.device)
-            else:
-                p = resize_bilinear(outs[-1], size=(h, w))
-                if hist is not None:
-                    p = match_histogram_device(p, *hist)
-            try:
-                split, gather = self._band_layout(p.shape)
-            except ValueError as e:
-                raise ValueError(f"scale {s} ({h}x{w}) cannot be cut on mesh {self.mesh.axes}: {e}") from e
-            targets = {"content": self.content_targets(contents_per_scale[s]),
-                       "style": capture_style_targets(self._extract, [to_nchw(x, self.device) for x in styles_per_scale[s]],
-                                                      blend, self.loss_cfg)}
-            scale = dict(self._strength_scale(targets))
-            p = split(p)
-            p, state, log = self._run(p, opt, opt.init(p), targets, scale, int(num_iters))
-            del state, targets  # one scale's L-BFGS history and activations at a time
-            out = gather(p)
-            outs.append(match_histogram_device(out, *hist) if hist is not None else out)
-            logs.append(log)
-        self.last_loss_log = torch.cat(logs).cpu().numpy()
-        return [to_nhwc(o) for o in outs]
+        with trace.span("engine.optimize_pyramid"):
+            n_styles = len(styles_per_scale[0])
+            blend = list(blend_weights) if blend_weights is not None else [1.0 / max(n_styles, 1)] * n_styles
+            hist = None if hist_stats is None else [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                                                    for a in hist_stats]
+            opt = self._make_optimizer()
+            outs, logs = [], []
+            for s, ((h, w), num_iters) in enumerate(schedule):
+                h, w = int(h), int(w)
+                if s == 0:
+                    p = to_nchw(init, self.device)
+                else:
+                    p = resize_bilinear(outs[-1], size=(h, w))
+                    if hist is not None:
+                        p = match_histogram_device(p, *hist)
+                try:
+                    split, gather = self._band_layout(p.shape)
+                except ValueError as e:
+                    raise ValueError(f"scale {s} ({h}x{w}) cannot be cut on mesh {self.mesh.axes}: {e}") from e
+                targets = {"content": self.content_targets(contents_per_scale[s])}
+                with trace.span("engine.capture", kind="style"):
+                    targets["style"] = capture_style_targets(
+                        self._extract, [to_nchw(x, self.device) for x in styles_per_scale[s]], blend, self.loss_cfg)
+                scale = dict(self._strength_scale(targets))
+                p = split(p)
+                with trace.span("engine.chunk", iters=int(num_iters)):
+                    p, state, log = self._run(p, opt, opt.init(p), targets, scale, int(num_iters))
+                del state, targets  # one scale's L-BFGS history and activations at a time
+                out = gather(p)
+                outs.append(match_histogram_device(out, *hist) if hist is not None else out)
+                logs.append(log)
+            self.last_loss_log = torch.cat(logs).cpu().numpy()
+            return [to_nhwc(o) for o in outs]
 
     def _band_layout(self, shape) -> tuple[Callable, Callable]:
         """(split, gather) of a (B, C, H, W) pastiche-sized tensor, or of a
@@ -806,6 +838,10 @@ class StyleEngine:
         return out
 
     def _profiled_run(self, profile_dir, *run_args, **run_kw):
+        """``_run`` under ``torch.profiler``, its chrome trace written to a
+        file of its own in ``profile_dir``: ``trace.json``, then
+        ``trace_1.json``, ``trace_2.json``, ... (a pyramid keeps every
+        scale's)."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
@@ -816,7 +852,11 @@ class StyleEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        path, n = os.path.join(profile_dir, "trace.json"), 0
+        while os.path.exists(path):
+            n += 1
+            path = os.path.join(profile_dir, f"trace_{n}.json")
+        prof.export_chrome_trace(path)
         return out
 
 

@@ -15,6 +15,8 @@ import os
 import numpy as np
 from PIL import Image
 
+from .. import trace
+
 Image.MAX_IMAGE_PIXELS = 1000000000  # gigapixel support (reference load.py:15)
 
 CAFFE_MEAN = np.array([103.939, 116.779, 123.68], dtype=np.float32)  # B, G, R
@@ -38,21 +40,22 @@ def preprocess(image_path, size: tuple[int, int] | None = None) -> np.ndarray:
     (reference load.py:22-25); an ndarray input (H, W, 3) in [0, 255] RGB is
     preprocessed directly; a path may be an http(s) URL.
     """
-    if isinstance(image_path, str) and image_path == "random":
-        image = np.random.normal(size=(256, 256, 3)).astype(np.float32)
-        image -= image.min()
-        image /= image.max()
-        rgb = image * 255.0
-    elif isinstance(image_path, np.ndarray):
-        rgb = np.asarray(image_path, np.float32)
-    else:
-        with _fetch(str(image_path)) as f, Image.open(f) as img:
-            pil = img.convert("RGB")
-        if size is not None:
-            pil = pil.resize((size[1], size[0]), Image.BILINEAR)
-        rgb = np.asarray(pil, np.float32)
-    bgr = rgb[..., ::-1] - CAFFE_MEAN
-    return bgr[None]
+    with trace.span("pipeline.load"):
+        if isinstance(image_path, str) and image_path == "random":
+            image = np.random.normal(size=(256, 256, 3)).astype(np.float32)
+            image -= image.min()
+            image /= image.max()
+            rgb = image * 255.0
+        elif isinstance(image_path, np.ndarray):
+            rgb = np.asarray(image_path, np.float32)
+        else:
+            with _fetch(str(image_path)) as f, Image.open(f) as img:
+                pil = img.convert("RGB")
+            if size is not None:
+                pil = pil.resize((size[1], size[0]), Image.BILINEAR)
+            rgb = np.asarray(pil, np.float32)
+        bgr = rgb[..., ::-1] - CAFFE_MEAN
+        return bgr[None]
 
 
 def load_u8(image_path) -> np.ndarray:
@@ -96,20 +99,21 @@ def save_tensor_to_file(tensor: np.ndarray, args, iteration=None, size=None, fil
         else:
             filename = f"{args.output}_{size}_{iteration}"
     tensor = np.asarray(tensor)
-    if tensor.shape[0] > 1:
-        from .video import save_video
+    with trace.span("pipeline.save"):
+        if tensor.shape[0] > 1:
+            from .video import save_video
 
-        out = f"{filename}.mp4"
-        save_video(tensor, out, fps=getattr(args, "fps", 24), ffmpeg_args=getattr(args, "ffmpeg", None))
+            out = f"{filename}.mp4"
+            save_video(tensor, out, fps=getattr(args, "fps", 24), ffmpeg_args=getattr(args, "ffmpeg", None))
+            return out
+        out = f"{filename}.png"
+        save_image(
+            tensor,
+            out,
+            content_path=getattr(args, "content", None),
+            original_colors_flag=bool(getattr(args, "original_colors", False)),
+        )
         return out
-    out = f"{filename}.png"
-    save_image(
-        tensor,
-        out,
-        content_path=getattr(args, "content", None),
-        original_colors_flag=bool(getattr(args, "original_colors", False)),
-    )
-    return out
 
 
 def process_style_images(args) -> list[np.ndarray]:

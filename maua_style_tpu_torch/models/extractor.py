@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import trace
+
 
 @dataclass(frozen=True)
 class Layer:
@@ -133,6 +135,10 @@ class Extractor(nn.Module):
         xs)`` a pool layer (bands: with their halo rows,
         ``spatial.banded_forward``); by default this module's own
         convolution, and ``pool_layer``, of each."""
+        with trace.span("net.forward"):
+            return self._features(x, wanted, conv, pool)
+
+    def _features(self, x, wanted, conv, pool) -> dict:
         banded = isinstance(x, (list, tuple))
         xs = list(x) if banded else [x]
         if conv is None:

@@ -11,8 +11,8 @@ backward.
 
 - ``correlation(f1, f2, max_disp, stride)``: on CUDA tensors it launches the
   hand-written kernel ``csrc/correlation.cu`` on the current stream or
-  raises; on CPU tensors it takes ``correlation_reference``.
-  ``correlation.launches`` counts kernel launches.
+  raises; on CPU tensors it takes ``correlation_reference``.  The counter
+  ``correlation.launches`` (``trace.counter``) counts kernel launches.
 - ``launch_plan``: how the kernel cuts the work (tile, register blocking,
   displacement groups, channel splits, ring stages, shared memory).
 - ``correlation_reference``: the plain version, a loop over the K shifted
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..kernels import build
 
 # csrc/correlation.cu's constants
@@ -218,10 +219,7 @@ def correlation(f1: torch.Tensor, f2: torch.Tensor, max_disp: int = 4, stride: i
         )
     if rc != 0:
         raise RuntimeError(f"correlation kernel launch failed with CUDA error {rc}")
-    correlation.launches += 1
+    trace.count("correlation.launches")
     return out
-
-
-correlation.launches = 0
 
 __all__ = ["correlation", "correlation_reference", "launch_plan", "LaunchPlan"]

@@ -7,8 +7,8 @@ with H*W contiguous and the Gram is G = F Fᵀ, f32 even for bf16 inputs.
 
 - ``gram(f)``: (B, C, N) -> (B, C, C).  On a CUDA tensor it launches the
   hand-written kernel ``csrc/gram.cu`` or raises; on a CPU tensor it uses
-  ``gram_reference``, the plain PyTorch version.  ``gram.launches`` counts
-  kernel launches.
+  ``gram_reference``, the plain PyTorch version.  The counter
+  ``gram.launches`` (``trace.counter``) counts kernel launches.
 - ``_GramFn``: autograd around ``gram`` with the symmetric backward
   dL/dF = (Ḡ + Ḡᵀ) F — one (C, C) x (C, N) product, as the JAX package's
   custom VJP (ops/gram.py:65-72).  The backward is a plain matrix product
@@ -47,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..kernels import build
 from ..parallel.spatial import sum_on
 
@@ -172,11 +173,8 @@ def gram(f: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"gram kernel launch failed with CUDA error {rc}")
-    gram.launches += 1
+    trace.count("gram.launches")
     return out
-
-
-gram.launches = 0
 
 
 class _GramFn(torch.autograd.Function):

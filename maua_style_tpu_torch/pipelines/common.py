@@ -8,6 +8,7 @@ import math
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import set_model_args
 from ..engine import StyleEngine
 from ..losses import LossConfig
@@ -35,27 +36,29 @@ def build_engine(args, current_size: int | None = None) -> StyleEngine:
     swap (reference optim.py:93-108 + models.load_model), on the mesh of
     ``--gpu`` / ``--mesh`` (``parallel.pastiche_sharding_for``; None on one
     device)."""
-    if current_size is not None:
-        set_model_args(args, current_size)
-    spec = select_model(str(args.model_file).lower(), args.pooling)
-    params = load_params(spec, str(args.model_file), strict=not args.disable_check,
-                         allow_random=getattr(args, "allow_random_weights", None) or None)
-    bf16 = str(getattr(args, "compute_dtype", "float32")) in ("bfloat16", "bf16")
-    sharding = pastiche_sharding_for(args)
-    return StyleEngine(
-        spec,
-        params,
-        loss_config_from_args(args),
-        optimizer=args.optimizer,
-        learning_rate=float(args.learning_rate),
-        lbfgs_history=int(args.lbfgs_num_correction),
-        lbfgs_method=getattr(args, "lbfgs_method", "compact"),
-        precision=getattr(args, "precision", "highest"),
-        normalize_weights=bool(args.normalize_weights),
-        compute_dtype=torch.bfloat16 if bf16 else torch.float32,
-        device=args.device,
-        mesh=sharding.mesh if sharding is not None else None,
-    )
+    with trace.span("engine.build"):
+        if current_size is not None:
+            set_model_args(args, current_size)
+        spec = select_model(str(args.model_file).lower(), args.pooling)
+        with trace.span("weights.load"):
+            params = load_params(spec, str(args.model_file), strict=not args.disable_check,
+                                 allow_random=getattr(args, "allow_random_weights", None) or None)
+        bf16 = str(getattr(args, "compute_dtype", "float32")) in ("bfloat16", "bf16")
+        sharding = pastiche_sharding_for(args)
+        return StyleEngine(
+            spec,
+            params,
+            loss_config_from_args(args),
+            optimizer=args.optimizer,
+            learning_rate=float(args.learning_rate),
+            lbfgs_history=int(args.lbfgs_num_correction),
+            lbfgs_method=getattr(args, "lbfgs_method", "compact"),
+            precision=getattr(args, "precision", "highest"),
+            normalize_weights=bool(args.normalize_weights),
+            compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+            device=args.device,
+            mesh=sharding.mesh if sharding is not None else None,
+        )
 
 
 def scale_styles(style_images: list[np.ndarray], content_shape, style_scale: float) -> list:

@@ -17,6 +17,7 @@ import os
 import numpy as np
 
 from .. import io as mio
+from .. import trace
 from ..config import set_model_args
 from ..ops.frame_ops import style_hist_stats
 from ..ops.histogram import match_histogram
@@ -26,7 +27,9 @@ from .common import build_engine, scale_styles
 
 def img_img(args) -> np.ndarray | None:
     style_images_big = mio.process_style_images(args)
-    content_image_big = match_histogram(mio.preprocess(args.content), style_images_big, mode=args.match_histograms)
+    content_image_big = mio.preprocess(args.content)
+    with trace.span("pipeline.match_histogram"):
+        content_image_big = match_histogram(content_image_big, style_images_big, mode=args.match_histograms)
     content_size = content_image_big.shape[1:3]
 
     if args.init not in ("content", "random"):
@@ -40,48 +43,59 @@ def img_img(args) -> np.ndarray | None:
             return fused
 
     for current_size, num_iters in zip(args.image_sizes, args.num_iters):
-        print(f"\nCurrent size {current_size}px")
-        if os.path.exists(f"{args.output}_{current_size}.png"):
-            pastiche = mio.preprocess(f"{args.output}_{current_size}.png")
-            continue
+        with trace.span("pipeline.scale", size=int(current_size)):
+            print(f"\nCurrent size {current_size}px")
+            if os.path.exists(f"{args.output}_{current_size}.png"):
+                pastiche = mio.preprocess(f"{args.output}_{current_size}.png")
+                continue
 
-        content_scale = current_size / max(*content_size)
-        content_image = resize_bilinear_np(content_image_big, scale_factor=content_scale)
-        style_images = scale_styles(style_images_big, content_image.shape, args.style_scale)
+            with trace.span("pipeline.resize"):
+                content_image = resize_bilinear_np(content_image_big, scale_factor=current_size / max(*content_size))
+                style_images = scale_styles(style_images_big, content_image.shape, args.style_scale)
+            pastiche = _init(args, pastiche, content_image_big, style_images_big, content_image.shape[1:3])
 
-        h, w = content_image.shape[1:3]
+            engine = build_engine(args, current_size)
+
+            def save_snapshot(arr, iteration):
+                mio.save_tensor_to_file(arr, args, iteration=iteration, size=current_size)
+
+            output_image = engine.optimize(
+                content_image,
+                style_images,
+                pastiche,
+                num_iters,
+                transfer_type="img_img",
+                blend_weights=args.style_blend_weights,
+                save_iter=args.save_iter,
+                save_callback=save_snapshot if args.save_iter > 0 else None,
+                run_checkpoint=(f"{args.output}_{current_size}_runstate" if getattr(args, "checkpoint_every", 0)
+                                else None),
+                checkpoint_every=getattr(args, "checkpoint_every", 0),
+                profile_dir=getattr(args, "profile_dir", None),
+                print_iter=args.print_iter if args.verbose else 0,
+            )
+
+            with trace.span("pipeline.match_histogram"):
+                pastiche = match_histogram(output_image, style_images_big, mode=args.match_histograms)
+            mio.save_tensor_to_file(pastiche, args, size=current_size)
+
+    return pastiche
+
+
+def _init(args, pastiche, content_image_big, style_images_big, hw) -> np.ndarray:
+    """A scale's init: at the first scale the random draw, the content or
+    ``--init``'s image, else the previous scale's result; resized to
+    ``hw`` and histogram-matched."""
+    h, w = hw
+    with trace.span("pipeline.resize"):
         if args.init == "random" and pastiche is None:
             pastiche = np.random.randn(1, h, w, 3).astype(np.float32) * 0.001
         elif args.init == "content" and pastiche is None:
             pastiche = resize_bilinear_np(content_image_big, size=(h, w))
         else:
             pastiche = resize_bilinear_np(np.asarray(pastiche), size=(h, w))
-        pastiche = match_histogram(pastiche, style_images_big, mode=args.match_histograms)
-
-        engine = build_engine(args, current_size)
-
-        def save_snapshot(arr, iteration):
-            mio.save_tensor_to_file(arr, args, iteration=iteration, size=current_size)
-
-        output_image = engine.optimize(
-            content_image,
-            style_images,
-            pastiche,
-            num_iters,
-            transfer_type="img_img",
-            blend_weights=args.style_blend_weights,
-            save_iter=args.save_iter,
-            save_callback=save_snapshot if args.save_iter > 0 else None,
-            run_checkpoint=f"{args.output}_{current_size}_runstate" if getattr(args, "checkpoint_every", 0) else None,
-            checkpoint_every=getattr(args, "checkpoint_every", 0),
-            profile_dir=getattr(args, "profile_dir", None),
-            print_iter=args.print_iter if args.verbose else 0,
-        )
-
-        pastiche = match_histogram(output_image, style_images_big, mode=args.match_histograms)
-        mio.save_tensor_to_file(pastiche, args, size=current_size)
-
-    return pastiche
+    with trace.span("pipeline.match_histogram"):
+        return match_histogram(pastiche, style_images_big, mode=args.match_histograms)
 
 
 def _fused_pyramid(args, content_image_big, style_images_big, content_size, pastiche) -> np.ndarray | None:
@@ -130,20 +144,14 @@ def _fused_pyramid(args, content_image_big, style_images_big, content_size, past
         return fallback("the scaling table swaps settings across these scales")
 
     schedule, contents_per_scale, styles_per_scale = [], [], []
-    for size, num_iters in todo:
-        content_image = resize_bilinear_np(content_image_big, scale_factor=size / max(*content_size))
-        contents_per_scale.append(content_image)
-        schedule.append((content_image.shape[1:3], num_iters))
-        styles_per_scale.append(scale_styles(style_images_big, content_image.shape, args.style_scale))
+    with trace.span("pipeline.resize"):
+        for size, num_iters in todo:
+            content_image = resize_bilinear_np(content_image_big, scale_factor=size / max(*content_size))
+            contents_per_scale.append(content_image)
+            schedule.append((content_image.shape[1:3], num_iters))
+            styles_per_scale.append(scale_styles(style_images_big, content_image.shape, args.style_scale))
 
-    h, w = schedule[0][0]
-    if args.init == "random" and pastiche is None:
-        pastiche = np.random.randn(1, h, w, 3).astype(np.float32) * 0.001
-    elif args.init == "content" and pastiche is None:
-        pastiche = resize_bilinear_np(content_image_big, size=(h, w))
-    else:
-        pastiche = resize_bilinear_np(np.asarray(pastiche), size=(h, w))
-    pastiche = match_histogram(pastiche, style_images_big, mode=args.match_histograms)
+    pastiche = _init(args, pastiche, content_image_big, style_images_big, schedule[0][0])
     hist_stats = style_hist_stats(style_images_big[0], mode="avg") if args.match_histograms else None
 
     engine = build_engine(args, todo[0][0])

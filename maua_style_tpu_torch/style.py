@@ -7,14 +7,19 @@ Usage::
 
 Runs on CUDA device 0 unless ``--gpu c`` asks for the CPU.  All three
 transfer types of the JAX CLI are ported: ``img_img``, ``vid_img`` and
-``img_vid``.
+``img_vid``.  A job is the span ``pipeline.<transfer_type>``; with
+``--profile_dir`` tracing is on for the whole job, and ``spans.json`` in
+that directory holds the job's roots (``trace.Root.to_dict``) at its end.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
 
-from . import config
+from . import config, trace
 
 
 def main(argv=None) -> None:
@@ -23,6 +28,22 @@ def main(argv=None) -> None:
     if args.seed >= 0:
         np.random.seed(args.seed)
 
+    profile_dir = getattr(args, "profile_dir", None)
+    if profile_dir:
+        trace.enable()
+        before = set(trace.roots())
+    try:
+        with trace.span(f"pipeline.{args.transfer_type}"):
+            _run(args)
+    finally:
+        if profile_dir:
+            trace.disable()
+            os.makedirs(profile_dir, exist_ok=True)
+            with open(os.path.join(profile_dir, "spans.json"), "w") as f:
+                json.dump([r.to_dict() for r in trace.roots() if r not in before], f)
+
+
+def _run(args) -> None:
     if args.transfer_type == "vid_img":
         from .pipelines.vid_img import vid_img
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from maua_style_tpu.ops.correlation import correlation_pallas, correlation_xla
+from maua_style_tpu_torch import trace
 from maua_style_tpu_torch.ops import correlation as C
 from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
@@ -33,9 +34,9 @@ def _inputs(b, h, w, c, seed=0):
 
 def _port(f1, f2, d, s):
     t1, t2 = (torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))) for x in (f1, f2))
-    before = C.correlation.launches
+    before = trace.counter("correlation.launches")
     out = C.correlation(t1, t2, d, s)  # CPU tensors: the plain version, no launch
-    assert C.correlation.launches == before
+    assert trace.counter("correlation.launches") == before
     return out.numpy().transpose(0, 2, 3, 1)
 
 

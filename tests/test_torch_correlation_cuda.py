@@ -11,6 +11,7 @@ max|Δ| / max|corr| <= 1e-5 (f32 sums over C in another order)."""
 import pytest
 import torch
 
+from maua_style_tpu_torch import trace
 from maua_style_tpu_torch.ops import correlation as C
 
 
@@ -65,10 +66,10 @@ def _check(b, c, h, w, d, s, offset=0):
     f1 = torch.randn(size + offset, device="cuda", generator=gen)[offset:].view(b, c, h, w)
     f2 = torch.randn(size + offset, device="cuda", generator=gen)[offset:].view(b, c, h, w)
     assert f1.is_contiguous() and (f1.data_ptr() % 16 == 0) == (offset == 0)
-    before = C.correlation.launches
+    before = trace.counter("correlation.launches")
     got = C.correlation(f1, f2, d, s)
     torch.cuda.synchronize()
-    assert C.correlation.launches == before + 1
+    assert trace.counter("correlation.launches") == before + 1
     want = C.correlation_reference(f1, f2, d, s)
     assert got.shape == want.shape == (b, (2 * d // s + 1) ** 2, h, w)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

@@ -12,6 +12,7 @@ import torch
 from maua_style_tpu.ops.gram import batch_gram as jax_batch_gram
 from maua_style_tpu.ops.gram import video_gram as jax_video_gram
 from maua_style_tpu.ops.pallas_gram import gram_nhwc, gram_pallas
+from maua_style_tpu_torch import trace
 from maua_style_tpu_torch.ops import gram as G
 from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
 
@@ -68,7 +69,7 @@ def test_video_gram_is_batch_gram_of_the_row_view():
     """Frame-major rows: block (a, b) of the video Gram is frame a's
     channels against frame b's, and each diagonal block is that frame's
     own Gram; the CPU path launches no kernel."""
-    before = G.gram.launches
+    before = trace.counter("gram.launches")
     x = torch.randn(3, 4, 5, 6)
     v = G.video_gram(x)
     f = x.reshape(3, 4, 30)
@@ -76,7 +77,7 @@ def test_video_gram_is_batch_gram_of_the_row_view():
         for b in range(3):
             torch.testing.assert_close(v[4 * a : 4 * a + 4, 4 * b : 4 * b + 4], f[a] @ f[b].T, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(G.video_gram(x[:1]), G.batch_gram(x[:1])[0], rtol=0, atol=0)
-    assert G.gram.launches == before
+    assert trace.counter("gram.launches") == before
 
 
 def test_gram_reference_matches_pallas_interpret():
@@ -101,11 +102,11 @@ def test_gram_reference_matches_pallas_interpret():
 
 
 def test_cpu_tensor_uses_plain_version_and_counts_nothing():
-    before = G.gram.launches
+    before = trace.counter("gram.launches")
     f = torch.randn(2, 5, 40)
     torch.testing.assert_close(G.gram(f), G.gram_reference(f), rtol=0, atol=0)
     G.batch_gram(torch.randn(1, 3, 4, 5, requires_grad=True)).sum().backward()
-    assert G.gram.launches == before
+    assert trace.counter("gram.launches") == before
 
 
 def test_gram_matrix_and_bf16_reference():

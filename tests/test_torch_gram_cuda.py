@@ -9,6 +9,7 @@ Without a CUDA device they skip: the kernel has no CPU mode."""
 import pytest
 import torch
 
+from maua_style_tpu_torch import trace
 from maua_style_tpu_torch.ops import gram as G
 
 # N = 4097, 4098, 4099 are 1, 2, 3 (mod 4): f32 rows that are not 16-byte
@@ -32,10 +33,10 @@ def test_cuda_kernel_matches_plain_version(dtype, b, c, n):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     f = torch.randn(b, c, n, device="cuda").to(dtype)
-    before = G.gram.launches
+    before = trace.counter("gram.launches")
     got = G.gram(f)
     torch.cuda.synchronize()
-    assert G.gram.launches == before + 1
+    assert trace.counter("gram.launches") == before + 1
     want = G.gram_reference(f)
     # the sum over N runs in another order: max error relative to max |G|
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
@@ -82,10 +83,10 @@ def test_cuda_video_gram_against_f64(t, c, n):
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.relu(torch.randn(t, c, 1, n, device="cuda"))
-    before = G.gram.launches
+    before = trace.counter("gram.launches")
     got = G.video_gram(x)
     torch.cuda.synchronize()
-    assert G.gram.launches == before + 1 and got.shape == (t * c, t * c)
+    assert trace.counter("gram.launches") == before + 1 and got.shape == (t * c, t * c)
     assert _f64_rel_err(got[None], x.view(1, t * c, n)) <= 1e-5
     torch.testing.assert_close(G.video_gram(x), got, rtol=0, atol=0)
 

@@ -19,6 +19,7 @@ import torch
 from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.losses import LossConfig, evaluate_banded_losses, evaluate_losses
 from maua_style_tpu_torch.models import init_params, select_model
+from maua_style_tpu_torch import trace
 from maua_style_tpu_torch.ops import gram as G
 from maua_style_tpu_torch.parallel import build_mesh, spatial
 
@@ -76,9 +77,9 @@ def test_banded_step_on_one_card_twice(use_covariance):
     level = spatial.level_heights(heights, engine.spec, "relu4_2")
     banded = {"style": targets["style"], "content": {
         l: spatial.split_rows(t, level, devices, t.shape[1], t.shape[3]) for l, t in targets["content"].items()}}
-    before = G.gram.launches
+    before = trace.counter("gram.launches")
     btotal, bper = evaluate_banded_losses(bands, engine._extract_bands(bands, cfg.all_layers), banded, cfg)
-    assert G.gram.launches - before == 2 * len(cfg.style_layers)
+    assert trace.counter("gram.launches") - before == 2 * len(cfg.style_layers)
     bgrad = spatial.gather_rows(torch.autograd.grad(btotal, bands), heights, devices[0], 3, w)
     rel = ((bper - per).abs() / per.abs().clamp(min=1e-30)).max()
     assert float(rel) <= 1e-5, (bper, per)
@@ -110,10 +111,10 @@ def test_optimize_frame_step_on_one_card_twice():
     def run(mesh, n):
         engine = StyleEngine(spec, params, LossConfig(), learning_rate=0.1, device=dev, mesh=mesh)
         engine.style_targets([style], [1.0])  # captured before the count
-        before = G.gram.launches
+        before = trace.counter("gram.launches")
         p, _ = engine.optimize_frame(u8, [style], n, **kw)
         torch.cuda.synchronize()
-        return p, engine.last_loss_log.cpu().numpy(), G.gram.launches - before
+        return p, engine.last_loss_log.cpu().numpy(), trace.counter("gram.launches") - before
 
     p0 = run(None, 0)[0]
     (q0, l0, n0), (q2, l2, n2) = run(None, 1), run(build_mesh([dev] * 2, [("space", 2)]), 1)
@@ -144,10 +145,10 @@ def test_img_vid_windows_on_frames2_of_one_card():
 
     def run(mesh):
         engine = StyleEngine(spec, params, LossConfig(video_style_factor=100.0), device=dev, mesh=mesh)
-        before = G.gram.launches
+        before = trace.counter("gram.launches")
         out = engine.optimize(content, [video], init, 3, transfer_type="img_vid", gram_frame_window=4)
         torch.cuda.synchronize()
-        return out, engine.last_loss_log, G.gram.launches - before
+        return out, engine.last_loss_log, trace.counter("gram.launches") - before
 
     (p0, l0, n0), (p2, l2, n2) = run(None), run(build_mesh([dev] * 2, [("frames", 2)]))
     assert (n0, n2) == (10 + 2 * 3 * 10, 10 + 2 * 3 * 20)
