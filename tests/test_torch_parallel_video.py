@@ -502,11 +502,11 @@ def test_optimize_frames_second_row_on_a_replica(monkeypatch):
     assert replica.mesh.axes == (("space", 2),) and replica.band_devices == [CPU, CPU] and replica.device == CPU
     weights = engine.extractor.state_dict()
     assert all(torch.equal(v, weights[k]) for k, v in replica.extractor.state_dict().items())
-    assert replica._style_target_cache.keys() == engine._style_target_cache.keys()
-    for key, targets in engine._style_target_cache.items():
-        for layer, t in targets.items():
-            copy = replica._style_target_cache[key][layer]
-            assert copy.device == replica.device and torch.equal(copy, t)
+    entry, cached = engine._style_cache, replica._style_cache
+    assert cached.weights == entry.weights and all(a is b for a, b in zip(cached.styles, entry.styles))
+    for layer, t in entry.targets.items():
+        copy = cached.targets[layer]
+        assert copy.device == replica.device and torch.equal(copy, t)
     np.testing.assert_allclose(tp.numpy(), p0.numpy(), atol=1e-3, rtol=1e-4)
     np.testing.assert_allclose(engine.last_loss_log.numpy(), single.last_loss_log.numpy(), rtol=1e-4, atol=0)
     assert np.abs(td.numpy().astype(int) - d0.numpy().astype(int)).max() <= 1
