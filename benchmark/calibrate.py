@@ -25,7 +25,8 @@ def main(argv=None) -> int:
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", required=True, help="comma-separated")
     p.add_argument("--precision", default=None, help="replaces the configuration's (high: TF32, the control)")
-    p.add_argument("--fault", default=None, help="a fault of faults.py planted under the timed path")
+    p.add_argument("--fault", default=None,
+                   help="a fault of faults.py, or of a judge's FAULTS, planted under the timed path")
     p.add_argument("--set", action="append", default=[], metavar="KEY=JSON",
                    help="replaces a configuration key (a witness: another path of the program)")
     args = p.parse_args(argv)

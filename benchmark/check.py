@@ -1,4 +1,5 @@
-"""The comparison that decides ``correct``.
+"""The Gram-style comparison that decides ``correct`` for the ``style``
+judge's cells (``judges/style.py`` calls ``judge``).
 
 A unit's answer is one or more optimised scales, each with the content,
 style and init the program optimised from, its loss log and its result.

@@ -1,7 +1,9 @@
 """Faults planted under the timed path, to show that the comparison
 deciding ``correct`` catches them (``tests/test_bench_faults.py`` on the
 CPU, ``calibrate.py --fault`` on a card).  Each is a list of ``patched``
-targets; the program's files are not touched.
+targets; the program's files are not touched.  These four are the Gram-
+style cells'; a configuration with a judge of its own brings its faults
+in that judge's ``FAULTS``, where ``patches`` looks for a name not here.
 
 - ``unchanged``: every optimiser step returns a zero update and its state
   as it was: the pastiche never moves.
@@ -47,9 +49,18 @@ def patches(name: str) -> list:
     from maua_style_tpu_torch.engine import LBFGS, Adam, StyleEngine
     from maua_style_tpu_torch.pipelines import img_img
 
-    return {
+    own = {
         "unchanged": [(LBFGS, "update", _unchanged), (Adam, "update", _unchanged)],
         "altered": [(StyleEngine, "optimize", _altered)],
         "nearest_resize": [(img_img, "resize_bilinear_np", _nearest)],
         "no_matching": [(img_img, "match_histogram", _no_matching)],
-    }[name]
+    }
+    if name in own:
+        return own[name]
+    from .harness import judge_module, judge_names
+
+    for judge in judge_names():
+        found = getattr(judge_module(judge), "FAULTS", {})
+        if name in found:
+            return found[name]()
+    raise KeyError(f"no fault {name!r} in faults.py or in any judge's FAULTS")

@@ -1,5 +1,6 @@
 """The yardstick's arithmetic: the chip's peaks, a step's operations from
-the layer tables, and the Gram kernel's (K1's) least time.
+the layer tables, and the least times of the Gram kernel (K1) and the
+cost-volume kernel (K2).
 
 Peaks: NVIDIA H100 SXM data sheet, dense, at the 700 W limit."""
 
@@ -39,4 +40,14 @@ def gram_bound_s(b: int, c: int, n: int) -> float:
     (4·B·C·N + 4·B·C²) bytes / the HBM bandwidth)."""
     ops = 3.0 * b * n * c * (c + 1) / PEAK_TF32
     byt = (4.0 * b * c * n + 4.0 * b * c * c) / PEAK_BYTES
+    return max(ops, byt)
+
+
+def correlation_bound_s(b: int, c: int, h: int, w: int, k: int) -> float:
+    """K2's least time for f32 (B, C, H, W) inputs and K displacements:
+    max(2·B·H·W·K·C / the f32 peak (2·C operations an output, outside the
+    tensor cores), 4·B·H·W·(2C + K) bytes / the HBM bandwidth (both inputs
+    read once, the f32 output written once))."""
+    ops = 2.0 * b * h * w * k * c / PEAK_FP32
+    byt = 4.0 * b * h * w * (2 * c + k) / PEAK_BYTES
     return max(ops, byt)

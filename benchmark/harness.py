@@ -5,10 +5,12 @@ configuration and traffic mix.  ``configs/<config>.json`` holds the
 configuration as it is run, ``traffic/<traffic>.json`` the mix's
 parameters and the name of its runner, ``runners/<runner>.py`` the code
 that drives the program, ``workloads/<cell>.json`` the limits of the
-comparison that decides ``correct``, and ``metrics/<name>.py`` (for a
-name with a suffix, ``metrics/<name before the first dot>.py``) the
-reader of each metric.  A later change adds a cell, a mix or a metric as
-new files and new entries; nothing here names one.
+comparison that decides ``correct``, ``judges/<judge>.py`` that
+comparison (the configuration's ``judge``; ``style`` where it names
+none), and ``metrics/<name>.py`` (for a name with a suffix,
+``metrics/<name before the first dot>.py``) the reader of each metric.
+A later change adds a cell, a mix, a metric or a configuration with its
+own reference as new files and new entries; nothing here names one.
 
 A run: set-up (the runner's: weights, inputs, warm-up), then units (an
 image, a call) back to back while the window lasts, starting another only
@@ -16,8 +18,9 @@ where the units so far say it ends within ``--seconds``; the window holds
 whole units only.  With ``--trace 1`` one unit runs under
 ``torch.profiler`` before the window (its trace is read for the per-layer
 numbers), and every unit of the window under the host instrumentation of
-``instrument.py``.  After the window the program is freed and the reference
-judges one unit drawn from the seed (``check.py``)."""
+``instrument.py``.  After the window the program is freed and the
+configuration's judge runs its reference over one unit drawn from the
+seed."""
 
 from __future__ import annotations
 
@@ -34,8 +37,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from . import check, flops, instrument
-from .inputs import make_weights
+from . import flops, instrument
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "maua_style_tpu")
@@ -59,7 +61,14 @@ def load_cell(root: str, name: str, bench_dir: str = HERE) -> dict:
         raise SystemExit(f"unknown workload {name!r}; BENCHMARK.json has {[w['name'] for w in spec['workloads']]}")
     cfg = read_json(os.path.join(bench_dir, "configs", f"{entry['config']}.json"))
     traffic = read_json(os.path.join(bench_dir, "traffic", f"{entry['traffic']}.json"))
-    return {**entry, "config": cfg, "traffic": traffic, "check": read_json(os.path.join(bench_dir, "workloads", f"{name}.json"))}
+    cell = {**entry, "config": cfg, "traffic": traffic,
+            "check": read_json(os.path.join(bench_dir, "workloads", f"{name}.json"))}
+    judge = judge_module(judge_name(cell), bench_dir)
+    limits, required = set(cell["check"]["limits"]), set(getattr(judge, "REQUIRED", ()))
+    if not required <= limits <= set(judge.NUMBERS):
+        raise SystemExit(f"{name}: limits {sorted(limits)}; judge {judge_name(cell)!r} returns "
+                         f"{list(judge.NUMBERS)} and needs a limit on each of {sorted(required)}")
+    return cell
 
 
 def metrics_for(spec: dict, cell: str, kind: str) -> list[dict]:
@@ -89,6 +98,23 @@ def runner(traffic: dict):
 def reader(metric: str, bench_dir: str = HERE):
     base = metric.split(".")[0]
     return load_module(os.path.join(bench_dir, "metrics", f"{base}.py"), f"benchmark.metrics.{base}")
+
+
+def judge_name(cell: dict) -> str:
+    return cell["config"].get("judge", "style")
+
+
+def judge_module(name: str, bench_dir: str = HERE):
+    """``judges/<name>.py``: ``NUMBERS`` (what it can return, the names a
+    cell's limits may take), optionally ``REQUIRED`` (names every cell's
+    limits must hold) and ``FAULTS`` ({fault: () -> ``patched`` targets}),
+    and ``judge(cell, runner_answer, seed, device)`` -> {number: value,
+    ``rows``: per-unit details}."""
+    return load_module(os.path.join(bench_dir, "judges", f"{name}.py"), f"benchmark.judges.{name}")
+
+
+def judge_names() -> list[str]:
+    return sorted(f[:-3] for f in os.listdir(os.path.join(HERE, "judges")) if f.endswith(".py") and f != "__init__.py")
 
 
 def process_age() -> float:
@@ -214,8 +240,10 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, device, precision: 
 
 def profiled_unit(rn, hooks: list, gram_shapes: list, device) -> dict:
     """One unit under ``torch.profiler`` and the host ranges, before the
-    window: ``instrument.summarize``'s numbers, with the unit's iterations
-    and K1's least time over the launches it made."""
+    window: ``instrument.summarize``'s numbers, with the unit's iterations,
+    K1's least time over the launches it made, and ``bound_s``, the
+    runner's {kernel: least seconds} from the launches its own
+    ``host_spans`` recorded (empty where it reports none)."""
     with instrument.patched(*hooks):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function(instrument.UNIT):
@@ -224,18 +252,18 @@ def profiled_unit(rn, hooks: list, gram_shapes: list, device) -> dict:
     summary = instrument.summarize(prof)
     summary["iters"] = unit["iters"]
     summary["gram_bound_s"] = sum(flops.gram_bound_s(*s) for s in gram_shapes)
+    summary["bound_s"] = unit.get("bound_s", {})
     gram_shapes.clear()
     return summary
 
 
-def judge(cell: dict, rn, answer: list, seed: int, device) -> dict:
-    """Frees the program, then runs the reference over ``answer``."""
-    scales = rn.reference_scales(answer)
+def judge(cell: dict, rn, answer, seed: int, device) -> dict:
+    """Frees the program, then has the configuration's judge run its
+    reference over ``answer``."""
+    runner_answer = rn.reference_scales(answer)
     rn.release()
     del rn
-    weights = make_weights(cell["config"]["arch"], seed, device)
-    return check.judge(cell["config"], weights, scales, device, int(cell["check"]["compare_iters"]),
-                       int(cell["check"].get("step_iters", 0)))
+    return judge_module(judge_name(cell)).judge(cell, runner_answer, seed, device)
 
 
 def readings(cell: dict, seeds, device, precision: str | None = None):

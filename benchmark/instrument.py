@@ -119,8 +119,10 @@ def summarize(prof) -> dict:
     device time by kernel name, device time of the kernels launched under
     the convolutions' ATen operators and under the optimiser's range (a
     kernel's launching operator is the CPU operator its linked correlation
-    id names), the Gram kernel's device time, and the idle gaps, each named
-    by the innermost benchmark range open on the host at its middle."""
+    id names), the Gram kernel's device time, the device time of every
+    kernel by name (``kernel_us``: copies and fills left out), and the idle
+    gaps, each named by the innermost benchmark range open on the host at
+    its middle."""
     cuda = torch.autograd.DeviceType.CUDA
     unit, host, dev = None, [], []
     ops: dict[int, tuple] = {}
@@ -183,6 +185,7 @@ def summarize(prof) -> dict:
         "conv_us": conv_ns / 1e3,
         "optimizer_us": opt_ns / 1e3,
         "gram_us": gram_ns / 1e3,
+        "kernel_us": {n: ns / 1e3 for n, ns in by_kernel.items() if _is_kernel(n)},
         "device_ops": [[n[:120], ns / 1e9] for n, ns in by_kernel.most_common(10)],
         "idle_gaps": [[n, ns / 1e9] for ns, n in gaps],
     }

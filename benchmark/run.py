@@ -60,8 +60,8 @@ def main(argv=None) -> int:
     if found:
         print(f"benchmark: loaded in this process: {', '.join(found)}", file=sys.stderr)
         return 3
-    for row in numbers["per_scale"]:
-        print("check scale " + json.dumps(row), file=sys.stderr)
+    for row in numbers["rows"]:
+        print("check row " + json.dumps(row), file=sys.stderr)
     print(f"check sample unit {numbers['sample']} of {len(r.units)}", file=sys.stderr)
     for name, c in out["check"].items():
         print(f"check {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

@@ -50,3 +50,16 @@ def test_gram_bound_matches_chip_smoke_at_1024():
     assert total == pytest.approx(0.17895240004197197, rel=1e-12)
     assert flops.gram_bound_s(1, 64, 1048576) == pytest.approx((4 * 64 * 1048576 + 4 * 64 * 64) / flops.PEAK_BYTES)
     assert flops.gram_bound_s(1, 512, 4096) == pytest.approx(3 * 4096 * 512 * 513 / flops.PEAK_TF32)
+
+
+def test_correlation_bound_matches_chip_smoke_at_1024x576():
+    # chip_smoke.corr_bound_ms over PWC's five levels (d = 4, K = 81) for 8
+    # pairs of 1024x576 frames: 0.07797148656716418 ms, bound by bytes
+    levels = ((196, 9, 16), (128, 18, 32), (96, 36, 64), (64, 72, 128), (32, 144, 256))
+    total = sum(flops.correlation_bound_s(8, c, h, w, 81) for c, h, w in levels) * 1e3
+    assert total == pytest.approx(0.07797148656716418, rel=1e-12)
+    assert flops.correlation_bound_s(8, 32, 144, 256, 81) == pytest.approx(
+        4 * 8 * 144 * 256 * (2 * 32 + 81) / flops.PEAK_BYTES)
+    # UnFlow's one level (d = 20, s = 2, K = 441) is bound by operations
+    assert flops.correlation_bound_s(8, 256, 72, 128, 441) == pytest.approx(
+        2 * 8 * 72 * 128 * 441 * 256 / flops.PEAK_FP32)

@@ -47,3 +47,8 @@ def test_fault_comes_out_not_correct(name, fault):
         _, numbers = harness.run(cell, 2**31 + 99, 0.1, False, "cpu")
     correct, compared = harness.verdict(cell, numbers)
     assert correct is (fault is None), compared
+
+
+def test_a_fault_no_file_names_is_refused():
+    with pytest.raises(KeyError, match="no_such_fault"):
+        faults.patches("no_such_fault")

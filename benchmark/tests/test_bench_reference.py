@@ -1,15 +1,20 @@
 """The plain reference against the port at a tiny size on the CPU: the
 loss terms of the first steps and the pastiche after one step of each
-optimiser."""
+optimiser; and the ``style`` judge against a direct ``check.judge``
+call."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from benchmark import inputs
+from benchmark import check, harness, inputs
 from benchmark.reference import style as ref
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 VGG = {"arch": "vgg19", "content_layers": ["relu4_2"],
        "style_layers": ["relu1_1", "relu2_1", "relu3_1", "relu4_1", "relu5_1"],
@@ -57,3 +62,27 @@ def test_reference_follows_the_port(cfg, optimizer, side):
     # flip, so a few elements may differ by up to two steps
     apart = np.abs(one - ref_one)
     assert (apart > 1e-4 * step).mean() <= 1e-3 and apart.max() <= 2 * step
+
+
+TINY = {"pyramid": {"sizes": [64, 96], "iters": [4, 3], "content_hw": [96, 96], "style_hw": [80, 80]},
+        "scale": {"iters": 4}}
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in harness.benchmark_spec(ROOT)["workloads"]])
+def test_style_judge_returns_what_check_judge_returns(name, tmp_path):
+    torch.set_num_threads(min(4, torch.get_num_threads()))
+    cell = harness.load_cell(ROOT, name)
+    assert harness.judge_name(cell) == "style"
+    t = cell["traffic"]
+    t.update(TINY[t["runner"]], warmup_iters=1)
+    if t["runner"] == "scale":
+        t["hw"] = [96, 96] if cell["config"]["arch"] == "nin" else [64, 64]
+    seed = 2**31 + 21
+    rn = harness.runner(t).Runner(cell, seed, "cpu", str(tmp_path))
+    scales = rn.reference_scales(rn.unit(0)["answer"])
+    got = harness.judge_module("style").judge(cell, scales, seed, "cpu")
+    want = check.judge(cell["config"], inputs.make_weights(cell["config"]["arch"], seed, "cpu"), scales, "cpu",
+                       int(cell["check"]["compare_iters"]), int(cell["check"].get("step_iters", 0)))
+    assert set(got) == set(want) - {"per_scale"} | {"rows"}
+    assert got["rows"] == want["per_scale"]
+    assert {k: v for k, v in got.items() if k != "rows"} == {k: v for k, v in want.items() if k != "per_scale"}

@@ -1,14 +1,17 @@
 """The readers of the program's spans and counters, on a root built by
 hand: each reads the newest root of ``maua_style_tpu_torch.trace``, and
-nothing where the program kept none."""
+nothing where the program kept none; and ``instrument.summarize`` on
+profiler events built by hand."""
 
 from __future__ import annotations
 
 import collections
+import types
 
 import pytest
+import torch
 
-from benchmark import harness
+from benchmark import harness, instrument
 
 trace = pytest.importorskip("maua_style_tpu_torch.trace")
 
@@ -76,3 +79,24 @@ def test_an_optimize_root_less_its_chunks(roots):
     roots.append(_root(("engine.optimize", 0, 10 * S, -1, {}), ("engine.capture", 0, 3 * S, 0, {"kind": "style"}),
                        ("engine.chunk", 3 * S, 9 * S, 0, {"iters": 25})))
     assert _read("outside_loop_s.scale") == pytest.approx(4.0)
+
+
+def _event(name, start, end, device, corr=0, link=0):
+    return types.SimpleNamespace(name=lambda: name, start_ns=lambda: start, end_ns=lambda: end,
+                                 device_type=lambda: device, correlation_id=lambda: corr,
+                                 linked_correlation_id=lambda: link, start_thread_id=lambda: 1)
+
+
+def test_summarize_times_every_kernel_by_name():
+    """Twelve kernels, one a copy: ``kernel_us`` holds all eleven others
+    (``device_ops`` only the ten longest, copies included)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [_event(instrument.UNIT, 0, 100_000, cpu, corr=1)]
+    events += [_event(f"kernel_{i}", 1000 * i, 1000 * i + 100 * (i + 1), cuda, link=1) for i in range(11)]
+    events.append(_event("Memcpy HtoD (Pageable -> Device)", 50_000, 60_000, cuda, link=1))
+    prof = types.SimpleNamespace(profiler=types.SimpleNamespace(
+        kineto_results=types.SimpleNamespace(events=lambda: events)))
+    summary = instrument.summarize(prof)
+    assert summary["kernel_us"] == {f"kernel_{i}": pytest.approx(0.1 * (i + 1)) for i in range(11)}
+    assert summary["kernels"] == 11 and len(summary["device_ops"]) == 10
+    assert summary["device_ops"][0] == ["Memcpy HtoD (Pageable -> Device)", pytest.approx(1e-5)]
