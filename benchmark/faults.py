@@ -12,7 +12,9 @@ in that judge's ``FAULTS``, where ``patches`` looks for a name not here.
 - ``nearest_resize``: the pyramid's host resize takes the nearest pixel
   instead of interpolating.
 - ``no_matching``: the pyramid's colour histogram matching returns its
-  input."""
+  input.
+
+``names(cell)`` says which faults a cell is held to."""
 
 from __future__ import annotations
 
@@ -64,3 +66,17 @@ def patches(name: str) -> list:
         if name in found:
             return found[name]()
     raise KeyError(f"no fault {name!r} in faults.py or in any judge's FAULTS")
+
+
+def names(cell: dict) -> tuple:
+    """The faults ``cell`` can have, by its judge: a ``style`` cell
+    ``unchanged`` and ``altered``, and its runner's ``STYLE_FAULTS``; a cell
+    of any other judge that judge's ``FAULTS``, and those of this file's
+    that it lists in ``SHARED_FAULTS`` (the paths its runner drives)."""
+    from .harness import judge_module, judge_name, runner
+
+    name = judge_name(cell)
+    if name == "style":
+        return ("unchanged", "altered") + tuple(getattr(runner(cell["traffic"]), "STYLE_FAULTS", ()))
+    judge = judge_module(name)
+    return tuple(getattr(judge, "FAULTS", {})) + tuple(getattr(judge, "SHARED_FAULTS", ()))

@@ -20,6 +20,11 @@ from .. import flops, inputs
 from ..instrument import LastUpdate, labelled, patched
 
 
+def tiny(traffic: dict, config: dict) -> dict:
+    """The mix cut to a size the CPU tests run in seconds."""
+    return {**traffic, "hw": [96, 96] if config["arch"] == "nin" else [64, 64], "iters": 30, "warmup_iters": 1}
+
+
 class Runner:
     def __init__(self, cell: dict, seed: int, device, workdir: str, precision: str | None = None, warm: bool = True):
         from maua_style_tpu_torch.engine import StyleEngine

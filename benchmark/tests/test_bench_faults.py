@@ -5,11 +5,14 @@ underneath by a fault of ``benchmark/faults.py``, and judges it by the
 cell's committed limits: a sound run comes out correct, and no broken one
 does.
 
-The faults: an optimiser step that returns its state unchanged, an answer
-altered where it is produced, and on the pyramid its two host steps
-broken (nearest-pixel resize, no colour matching).  The cells run one
-image on one card, so no batch is halved and no exchange between cards
-can be left out."""
+A cell's faults are ``faults.names(cell)``: on the Gram-style cells an
+optimiser step that returns its state unchanged, an answer altered where
+it is produced, and on the pyramid its two host steps broken
+(nearest-pixel resize, no colour matching); on a cell of another judge,
+that judge's ``FAULTS`` and the shared ones it names.  The tiny size is
+the runner's own ``tiny(traffic, config)``; a runner without one fails
+here at collection.  The cells run one image on one card, so no batch is
+halved and no exchange between cards can be left out."""
 
 from __future__ import annotations
 
@@ -24,18 +27,16 @@ from benchmark.instrument import patched
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CASES = []
 for w in harness.benchmark_spec(ROOT)["workloads"]:
-    kind = harness.load_cell(ROOT, w["name"])["traffic"]["runner"]
-    for fault in (None, "unchanged", "altered") + (("nearest_resize", "no_matching") if kind == "pyramid" else ()):
-        CASES.append((w["name"], fault))
+    cell = harness.load_cell(ROOT, w["name"])
+    if not callable(getattr(harness.runner(cell["traffic"]), "tiny", None)):
+        raise RuntimeError(f"benchmark/runners/{cell['traffic']['runner']}.py (cell {w['name']}) has no "
+                           "tiny(traffic, config): the fault tests would run its full-size mix on the CPU")
+    CASES += [(w["name"], fault) for fault in (None,) + faults.names(cell)]
 
 
 def tiny(name: str) -> dict:
     cell = harness.load_cell(ROOT, name)
-    t = cell["traffic"]
-    if t["runner"] == "pyramid":
-        t.update(sizes=[64, 96], iters=[60, 40], content_hw=[96, 96], style_hw=[80, 80], warmup_iters=1)
-    else:
-        t.update(hw=[96, 96] if cell["config"]["arch"] == "nin" else [64, 64], iters=30, warmup_iters=1)
+    cell["traffic"] = harness.runner(cell["traffic"]).tiny(cell["traffic"], cell["config"])
     return cell
 
 

@@ -2,8 +2,9 @@
 named in BENCHMARK.json has its file and parses, each cell's limits are
 numbers its judge returns, and a cell, a mix and a metric, and a
 configuration with its own architecture, judge, fault and kernel bound,
-added as new files (in a copy) are found by name and run without an edit
-to any file already there."""
+added as new files (in a copy) are found by name and run, by the harness
+and by the benchmark's own tests, without an edit to any file already
+there."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+from xml.etree import ElementTree
 
 import pytest
 
@@ -47,7 +49,7 @@ def test_top_level_keys_and_names():
 @pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
 def test_each_cell_loads_with_its_files(cell):
     c = harness.load_cell(ROOT, cell)
-    assert c["chips"] == 1
+    assert c["chips"] in (1, 4)
     assert os.path.exists(os.path.join(BENCH, "runners", f"{c['traffic']['runner']}.py"))
     limits = c["check"]["limits"]
     judge = harness.judge_module(harness.judge_name(c))
@@ -108,6 +110,10 @@ import torch
 from .. import flops, inputs
 
 
+def tiny(traffic, config):
+    return dict(traffic)  # already a CPU size
+
+
 class Runner:
     def __init__(self, cell, seed, device, workdir, precision=None, warm=True):
         self.cfg, self.traffic, self.device = cell["config"], cell["traffic"], torch.device(device)
@@ -162,6 +168,7 @@ def _zero_volume():
 
 
 FAULTS = {"zero_volume": _zero_volume}
+SHARED_FAULTS = ()  # no optimiser, no engine answer: none of faults.py's reaches it
 
 
 def judge(cell, runner_answer, seed, device):
@@ -213,23 +220,10 @@ def _digests(top) -> dict:
     return {str(p.relative_to(top)): hashlib.sha256(p.read_bytes()).hexdigest() for p in top.rglob("*") if p.is_file()}
 
 
-def test_new_cell_mix_and_metric_are_files_of_their_own(tmp_path):
-    root = tmp_path / "checkout"
-    shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
-    spec = json.loads(json.dumps(SPEC))
-    bench = root / "benchmark"
-    before = _digests(bench)
-    (bench / "traffic" / "scale_tiny.json").write_text(json.dumps({"runner": "scale", "hw": [48, 48], "iters": 3,
-                                                                    "warmup_iters": 1}))
-    (bench / "workloads" / "vgg19.tiny.json").write_text(json.dumps({"compare_iters": 2, "limits": {
-        "loss_gap": 1e-3, "answer_gap": 1.0}}))
-    (bench / "metrics" / "iters_per_unit.py").write_text("def read(run):\n    return run.units[0]['iters']\n")
-    spec["workloads"].append({"name": "vgg19.tiny", "config": "vgg19", "traffic": "scale_tiny", "chips": 1,
-                              "why": "a test's cell"})
-    spec["per_layer"].append({"name": "iters_per_unit.tiny", "unit": "it", "better": "higher", "source": "host_clock",
-                              "layer": "engine loop", "moves": "mpix_it_per_s", "workloads": ["vgg19.tiny"]})
-    # a configuration with an architecture of its own (not in nets.TABLES),
-    # its judge, number, fault, runner, mix, cell and kernel-bound metric
+def _add_toy(bench, spec: dict) -> None:
+    """Adds to the copy ``bench`` a configuration with an architecture of
+    its own (not in nets.TABLES), its judge, number, fault, runner, mix,
+    cell and kernel-bound metric, and their entries to ``spec``."""
     (bench / "configs" / "toyflow.json").write_text(json.dumps({
         "name": "toyflow", "source": "https://arxiv.org/abs/1709.02371", "arch": "toycorr", "judge": "toycorr",
         "channels": 8, "max_disp": 2, "reduced": []}))
@@ -246,7 +240,33 @@ def test_new_cell_mix_and_metric_are_files_of_their_own(tmp_path):
                               "layer": "kernels", "moves": "mpix_it_per_s", "workloads": ["toyflow.small"]})
     for m in spec["end_to_end"]:
         if m["name"] == "mpix_it_per_s":
-            m["workloads"] += ["vgg19.tiny", "toyflow.small"]
+            m["workloads"].append("toyflow.small")
+
+
+def _copy(tmp_path):
+    """A checkout in ``tmp_path`` with this benchmark's files: (its root,
+    its benchmark directory, a copy of BENCHMARK.json's contents)."""
+    root = tmp_path / "checkout"
+    shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    return root, root / "benchmark", json.loads(json.dumps(SPEC))
+
+
+def test_new_cell_mix_and_metric_are_files_of_their_own(tmp_path):
+    root, bench, spec = _copy(tmp_path)
+    before = _digests(bench)
+    (bench / "traffic" / "scale_tiny.json").write_text(json.dumps({"runner": "scale", "hw": [48, 48], "iters": 3,
+                                                                    "warmup_iters": 1}))
+    (bench / "workloads" / "vgg19.tiny.json").write_text(json.dumps({"compare_iters": 2, "limits": {
+        "loss_gap": 1e-3, "answer_gap": 1.0}}))
+    (bench / "metrics" / "iters_per_unit.py").write_text("def read(run):\n    return run.units[0]['iters']\n")
+    spec["workloads"].append({"name": "vgg19.tiny", "config": "vgg19", "traffic": "scale_tiny", "chips": 1,
+                              "why": "a test's cell"})
+    spec["per_layer"].append({"name": "iters_per_unit.tiny", "unit": "it", "better": "higher", "source": "host_clock",
+                              "layer": "engine loop", "moves": "mpix_it_per_s", "workloads": ["vgg19.tiny"]})
+    for m in spec["end_to_end"]:
+        if m["name"] == "mpix_it_per_s":
+            m["workloads"].append("vgg19.tiny")
+    _add_toy(bench, spec)
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     cell = harness.load_cell(str(root), "vgg19.tiny", bench_dir=str(bench))
     assert cell["traffic"]["hw"] == [48, 48] and cell["config"]["arch"] == "vgg19"
@@ -269,5 +289,38 @@ def test_new_cell_mix_and_metric_are_files_of_their_own(tmp_path):
     assert out["bound_s"] == {"correlation": pytest.approx(want, rel=1e-12)}
     assert out["roofline"] == pytest.approx(100.0 * want / 2e-6, rel=1e-12)
     # every file that was in the copy is unchanged, byte for byte
+    after = _digests(bench)
+    assert {k: after.get(k) for k in before} == before
+
+
+# the benchmark's own tests of every cell, as the copy's files find it
+COPY_TESTS = ["benchmark/tests/test_bench_faults.py", "benchmark/tests/test_bench_reference.py",
+              "benchmark/tests/test_bench_layout.py::test_each_cell_loads_with_its_files"]
+
+
+def test_benchmark_tests_take_a_configuration_with_its_own_judge(tmp_path):
+    """The copy's own fault, reference and layout tests, run on the toy
+    cell: its tiny size comes from its runner's ``tiny``, its cases are its
+    judge's faults and no other, and no style-judge case is made for it."""
+    root, bench, spec = _copy(tmp_path)
+    before = _digests(bench)
+    _add_toy(bench, spec)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    report = tmp_path / "report.xml"
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST_")}
+    env.update(PYTHONPATH=ROOT, PYTHONDONTWRITEBYTECODE="1")
+    proc = subprocess.run([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--rootdir", str(root),
+                           "-k", "toyflow", f"--junitxml={report}", *COPY_TESTS],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    outcomes = {}
+    for case in ElementTree.parse(report).iter("testcase"):
+        failed = [c.tag for c in case if c.tag in ("failure", "error", "skipped")]
+        outcomes[case.get("name")] = failed[0] if failed else "passed"
+    assert outcomes == {
+        "test_fault_comes_out_not_correct[toyflow.small-sound]": "passed",
+        "test_fault_comes_out_not_correct[toyflow.small-zero_volume]": "passed",
+        "test_each_cell_loads_with_its_files[toyflow.small]": "passed",
+    }
     after = _digests(bench)
     assert {k: after.get(k) for k in before} == before

@@ -1,7 +1,7 @@
 """The plain reference against the port at a tiny size on the CPU: the
 loss terms of the first steps and the pastiche after one step of each
 optimiser; and the ``style`` judge against a direct ``check.judge``
-call."""
+call, on every cell it judges."""
 
 from __future__ import annotations
 
@@ -68,11 +68,14 @@ TINY = {"pyramid": {"sizes": [64, 96], "iters": [4, 3], "content_hw": [96, 96], 
         "scale": {"iters": 4}}
 
 
-@pytest.mark.parametrize("name", [w["name"] for w in harness.benchmark_spec(ROOT)["workloads"]])
+STYLE_CELLS = [w["name"] for w in harness.benchmark_spec(ROOT)["workloads"]
+               if harness.judge_name(harness.load_cell(ROOT, w["name"])) == "style"]
+
+
+@pytest.mark.parametrize("name", STYLE_CELLS)
 def test_style_judge_returns_what_check_judge_returns(name, tmp_path):
     torch.set_num_threads(min(4, torch.get_num_threads()))
     cell = harness.load_cell(ROOT, name)
-    assert harness.judge_name(cell) == "style"
     t = cell["traffic"]
     t.update(TINY[t["runner"]], warmup_iters=1)
     if t["runner"] == "scale":
