@@ -102,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Feature-net activation dtype; Gram and losses stay float32")
     parser.add_argument("--backend", default="xla", help="accepted for reference CLI compat; ignored")
     parser.add_argument("--multidevice_strategy", default="5", help="accepted for reference CLI compat; ignored")
-    parser.add_argument("--no_cudnn_autotune", action="store_true", help="accepted for reference CLI compat; ignored")
+    parser.add_argument("--no_cudnn_autotune", action="store_true",
+                        help="let cuDNN's heuristics pick the feature net's convolution algorithms instead of "
+                             "timing them the first time each shape runs")
 
     # video content settings
     parser.add_argument("--flow_models", type=str, default="spynet,pwc")

@@ -16,6 +16,12 @@ allows it by default); ``high`` and ``default`` allow TF32.
 ``compute_dtype=torch.bfloat16`` runs the feature net in bf16; the Grams,
 the losses, the optimiser and the pastiche stay f32 (the L-BFGS histories
 then store bf16, as in the JAX package's serving config).
+cuDNN picks the algorithms of the feature net's input gradient by timing
+them (``cudnn_autotune``, on unless ``--no_cudnn_autotune``): the
+process-wide ``torch.backends.cudnn.benchmark`` and ``deterministic`` are
+on only while a step's ``torch.autograd.grad`` runs (but for the input
+gradient of the convolution that reads the image), and back at the
+caller's values whenever control returns to the caller.
 
 The vid_img frame path (``prep_frame``, ``optimize_frame``,
 ``optimize_frames``, ``optimize_frame_chain``) keeps every frame on the
@@ -79,6 +85,7 @@ loop's, which matches histograms on the host.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import shutil
@@ -203,6 +210,71 @@ def apply_precision(precision: str) -> None:
     torch.backends.cudnn.allow_tf32 = _TF32[precision]
 
 
+# cuDNN's measured selection of the feature net's input-gradient plans
+# (``StyleEngine(cudnn_autotune=True)``).  The candidate plans it times a
+# problem, in the order of its heuristics (PyTorch's default 10): on an H100
+# 80GB HBM3 the 10-plan search took 28.3 s of set-up at 2048² (VGG-19),
+# 30.6 s over the pyramid's five scales and 136 s at 9088² (NIN); 2 plans
+# find the same VGG-19 data-gradient plans (86.5 → 12.9 ms at 2048² conv1_2)
+# in 0.9 s and 2.2 s, and 3 or 4 plans gain no more there; kept to
+# deterministic plans, 2 take the 2048² data gradients from 260.2 to 129.2 ms
+# an iteration in 0.9 s of search (chip_smoke's report_conv_algorithms)
+_BENCHMARK_LIMIT = 2
+# every (arch, deepest layer, pastiche shape, dtype, device) this process has
+# run a measured input gradient of: the key of one set of convolution
+# problems that cuDNN times once and keeps a plan of for the process
+_MEASURED: set = set()
+# the caller's (benchmark, deterministic, benchmark_limit) while a measured
+# scope is open (engine calls do not overlap; the flags are the process's)
+_SCOPE: dict = {"caller": None}
+
+
+@contextlib.contextmanager
+def _measured_selection(inner=contextlib.nullcontext()):
+    """cuDNN's measured selection inside the block (and the context
+    ``inner``): ``torch.backends.cudnn.benchmark`` on, ``benchmark_limit``
+    at ``_BENCHMARK_LIMIT``, and ``deterministic`` on, which keeps the
+    search to plans that repeat bit for bit and, as a field of the key
+    PyTorch caches a plan under, keeps the plans it picks from anything
+    that runs the same problems with the flag off (the heuristics' plans
+    stay theirs).  All three are the caller's again after it, however it
+    ends."""
+    cudnn = torch.backends.cudnn
+    limit = cudnn.is_available()  # a build without cuDNN has no limit
+    saved = cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit if limit else None
+    cudnn.benchmark = cudnn.deterministic = True
+    if limit:
+        cudnn.benchmark_limit = _BENCHMARK_LIMIT
+    _SCOPE["caller"] = saved
+    try:
+        with inner:
+            yield
+    finally:
+        _SCOPE["caller"] = None
+        cudnn.benchmark, cudnn.deterministic = saved[:2]
+        if limit:
+            cudnn.benchmark_limit = saved[2]
+
+
+def _image_conv_hook(module, inputs, out) -> None:
+    """Forward hook of the convolution that reads the image: in a measured
+    scope its input gradient, the last convolution of the backward, runs
+    under the caller's flags (``_as_caller``, on its output's gradient), on
+    the plan it had before.  Its 3-channel result leaves cuDNN's candidates
+    far apart: at 9088² NIN's 11x11 stride-4 conv1 took 5.6 s to time its
+    second plan and 51 s to find a faster one than the heuristics' 102 ms
+    among ten (H100 80GB HBM3, chip_smoke's report_conv_algorithms), and
+    VGG-19's conv1_1 gains 0.5 of 7.1 ms at 2048²."""
+    if out.requires_grad:
+        out.register_hook(_as_caller)
+
+
+def _as_caller(grad) -> None:
+    caller = _SCOPE["caller"]
+    if caller is not None:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = caller[:2]
+
+
 def resolve_device(device=None) -> torch.device:
     """The engine's device: CUDA device 0 unless the caller names another;
     a CUDA device without CUDA raises."""
@@ -229,7 +301,13 @@ class StyleEngine:
         compute_dtype: torch.dtype = torch.float32,
         device=None,
         mesh=None,
+        cudnn_autotune: bool = True,
     ):
+        """``cudnn_autotune``: cuDNN picks the plan of each convolution of
+        the feature net's input gradient (but the image convolution's,
+        ``_image_conv_hook``) by timing its candidates the first time the
+        process meets the problem (``_measured``), not by its heuristics;
+        the same f32 (or bf16) arithmetic, another algorithm."""
         apply_precision(precision)
         if optimizer not in ("lbfgs", "adam"):
             raise ValueError(f"unknown optimizer {optimizer}")
@@ -266,11 +344,36 @@ class StyleEngine:
         self.precision = precision
         self.normalize_weights = normalize_weights
         self.compute_dtype = compute_dtype
+        self.cudnn_autotune = cudnn_autotune
+        if cudnn_autotune and self.spec.conv_layers:
+            image_conv = self.extractor.get_submodule(self.spec.conv_layers[0].name)
+            image_conv.register_forward_hook(_image_conv_hook)
         self.last_loss_log: np.ndarray | None = None
         # one capture per engine (engines live per scale); per-frame callers
         # pass the same style images every call
         self._style_cache: _StyleEntry | None = None
         self._replicas: dict[tuple[torch.device, ...], StyleEngine] = {}
+
+    def _measured(self, p):
+        """The scope of one step's input gradient of the pastiche ``p``:
+        with ``cudnn_autotune`` cuDNN's measured selection
+        (``_measured_selection``), and a shape the process meets here for
+        the first time counts once in ``net.autotune_shapes`` and runs under
+        a ``net.autotune`` span (cuDNN searches only on a CUDA device, and
+        only for problems it holds no plan of).  A banded pastiche (a list)
+        keeps the caller's flags: its bands' backwards may run at once on
+        several devices' threads, where the process-wide flags, which
+        ``_as_caller`` sets back in the middle of a backward, cannot follow
+        each band."""
+        if not self.cudnn_autotune or isinstance(p, list):
+            return contextlib.nullcontext()
+        key = (self.spec.arch, self.spec.layers[-1].name if self.spec.layers else None, tuple(p.shape),
+               self.compute_dtype, p.device)
+        if key in _MEASURED:
+            return _measured_selection()
+        _MEASURED.add(key)
+        trace.count("net.autotune_shapes")
+        return _measured_selection(trace.span("net.autotune", shape=list(p.shape)))
 
     def _extract(self, x: torch.Tensor, layers: Sequence[str]) -> dict[str, torch.Tensor]:
         return self.extractor(x.to(self.compute_dtype), layers)
@@ -298,6 +401,7 @@ class StyleEngine:
                 learning_rate=self.learning_rate, lbfgs_history=self.lbfgs_history, lbfgs_method=self.lbfgs_method,
                 precision=self.precision, normalize_weights=self.normalize_weights, compute_dtype=self.compute_dtype,
                 device=row[0], mesh=row_mesh(self.mesh, row) if len(row) > 1 else None,
+                cudnn_autotune=self.cudnn_autotune,
             )
         return self._replicas[row]
 
@@ -470,7 +574,7 @@ class StyleEngine:
                 total, per = loss_of(p)
                 # an empty channel share's piece (tensor:4 over 3 colours) may reach no term
                 empty = banded and any(b.numel() == 0 for b in p)
-                with trace.span("net.backward"):
+                with trace.span("net.backward"), self._measured(p):
                     raw = torch.autograd.grad(total, p, allow_unused=empty)
                 grads = [torch.zeros_like(x) if g is None else g.float() for g, x in zip(raw, p if banded else [p])]
                 if mask is not None:

@@ -58,6 +58,7 @@ def build_engine(args, current_size: int | None = None) -> StyleEngine:
             compute_dtype=torch.bfloat16 if bf16 else torch.float32,
             device=args.device,
             mesh=sharding.mesh if sharding is not None else None,
+            cudnn_autotune=not getattr(args, "no_cudnn_autotune", False),
         )
 
 
