@@ -291,24 +291,6 @@ Phases, each of which must pass (nothing is caught and passed over):
    prev_warp --original_colors; then the 1024² img_img step twice from one
    seed, with and without ``torch.backends.cudnn.deterministic``, printing
    the first activation, Gram, loss or gradient that differs.
-7a. cuDNN's algorithm choice (report only, and not one of the phases a
-   whole run makes: ``--only report_conv_algorithms`` and ``--only
-   report_cold_cli_image``; it touches no code a benchmark cell runs): for
-   each convolution problem of the benchmark's three cells (VGG-19 to
-   conv5_1 at the pyramid's 256..1448 and at 2048², NIN to cccp7-1024 at
-   9088²; forward and input gradient, f32, TF32 off), the time with cuDNN's
-   heuristics and with the engine's measured selection
-   (``optimize._measured_selection`` around each input gradient but the
-   image convolution's, as the engine runs them), each mode in a fresh
-   process (PyTorch keeps one plan a problem for the process): CUDA events,
-   median of 7, the first call's seconds less that (the search), the
-   workspace (``torch.cuda.max_memory_allocated`` around one call, less
-   the output), whether a second call repeats the first bit for bit, and
-   the kernels one call launches; then whether a plan the heuristics chose
-   is searched again once the flag is on.  ``report_cold_cli_image``: one
-   cold img_img pyramid image (the cell's sizes and iterations) in a fresh
-   process, this tree with and without ``--no_cudnn_autotune``, and with
-   ``--parent DIR`` that checkout's, in turns.
 7b. The capacity tuner (``tuning/max_sizes.py``), last because its probes
    fill the card: measured peaks of VGG-19 (L-BFGS compact and two-loop,
    Adam; f32 and bf16) and prune (Adam, f32) at 512², 1024² and 2048²
@@ -3901,7 +3883,7 @@ def run_vqgan_space(results: dict) -> dict[str, int]:
     (CUDA events, median of 5) and each one's peak memory; K1 and K2 0."""
     import torch
 
-    from maua_style_tpu_torch.engine.optimize import apply_precision
+    from maua_style_tpu_torch.models.conv_plans import apply_precision
     from maua_style_tpu_torch.models import vqgan as vq
     from maua_style_tpu_torch.parallel import build_mesh, spatial
 
@@ -5026,224 +5008,6 @@ def run_fused(results: dict) -> dict[str, int]:
     return counts
 
 
-# the benchmark's cells: (cell, arch, deepest layer, sides); the pyramid's
-# styles are scaled to its content's area, so they have its shapes
-CONV_CELLS = (("vgg19.pyramid", "vgg19", "relu5_1", (256, 512, 724, 1024, 1448)),
-              ("vgg19.2048", "vgg19", "relu5_1", (2048,)), ("nin.9088", "nin", "relu11", (9088,)))
-# (mode, the engine's measured selection around the input gradients)
-CONV_MODES = (("heuristic", False), ("engine", True))
-CONV_REPS = 7
-PYRAMID_ITERS = (125, 100, 75, 50, 25)  # the vgg19.pyramid cell's
-
-
-def conv_problems() -> list[dict]:
-    """Each convolution of the cells' feature nets: its cell, layer and
-    side, input, weight and output shapes, stride and padding."""
-    from maua_style_tpu_torch.models import select_model
-    from maua_style_tpu_torch.models.extractor import pool_out_len, truncate_spec
-
-    out = []
-    for cell, arch, deepest, sides in CONV_CELLS:
-        spec = truncate_spec(select_model(arch), [deepest])
-        for side in sides:
-            cin, h, w = 3, side, side
-            for l in spec.layers:
-                if l.kind == "conv":
-                    oh = (h + 2 * l.pad[0] - l.kernel[0]) // l.stride[0] + 1
-                    ow = (w + 2 * l.pad[1] - l.kernel[1]) // l.stride[1] + 1
-                    out.append({"cell": cell, "layer": l.name, "side": side, "x": (1, cin, h, w),
-                                "w": (l.out_ch, cin, *l.kernel), "y": (1, l.out_ch, oh, ow), "stride": l.stride,
-                                "pad": l.pad, "first": l is spec.conv_layers[0]})
-                    cin, h, w = l.out_ch, oh, ow
-                elif l.kind in ("maxpool", "avgpool"):
-                    h = pool_out_len(h, l.kernel[0], l.stride[0], l.ceil_mode)
-                    w = pool_out_len(w, l.kernel[1], l.stride[1], l.ceil_mode)
-    return out
-
-
-def conv_worker(mode: str, path: str) -> None:
-    """One mode of ``report_conv_algorithms``, in a process of its own:
-    writes each problem's rows to ``path`` (JSON)."""
-    import torch
-    import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from maua_style_tpu_torch.engine import optimize
-
-    engine = dict(CONV_MODES)[mode]
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = torch.backends.cudnn.deterministic = False
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, calls = [], []
-    for i, prob in enumerate(conv_problems()):
-        x = torch.randn(prob["x"], device="cuda", generator=gen)
-        wt = torch.randn(prob["w"], device="cuda", generator=gen) * 0.01
-        gy = torch.randn(prob["y"], device="cuda", generator=gen)
-        s, p = prob["stride"], prob["pad"]
-        passes = {"forward": lambda x=x, wt=wt, s=s, p=p: F.conv2d(x, wt, None, s, p),
-                  "input_grad": lambda x=x, wt=wt, gy=gy, s=s, p=p: torch.ops.aten.convolution_backward(
-                      gy, x, wt, None, s, p, (1, 1), False, (0, 0), 1, (True, False, False))[0]}
-        for name, call in passes.items():
-            # the engine measures the input gradients but the image convolution's
-            measured = engine and name == "input_grad" and not prob["first"]
-
-            def fn(call=call, measured=measured):
-                if not measured:
-                    return call()
-                with optimize._measured_selection():
-                    return call()
-
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            first_s = time.perf_counter() - t0
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            out = fn()
-            torch.cuda.synchronize()
-            workspace = torch.cuda.max_memory_allocated() - base - out.numel() * out.element_size()
-            same = torch.equal(out, fn())  # one input, one plan: bit for bit again?
-            del out
-            ms = []
-            for _ in range(CONV_REPS):
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                a.record()
-                fn()
-                b.record()
-                b.synchronize()
-                ms.append(a.elapsed_time(b))
-            med = statistics.median(ms)
-            rows.append({**{k: prob[k] for k in ("cell", "layer", "side", "x", "w")}, "pass": name, "ms": med,
-                         "first_s": first_s, "search_s": first_s - med / 1e3, "workspace_b": workspace,
-                         "repeats": same})
-            calls.append((len(rows) - 1, fn))
-        del x, wt, gy
-    # the kernels of one call of each problem, every plan already chosen
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i, fn in calls:
-            with record_function(f"conv_problem_{i}"):
-                fn()
-        torch.cuda.synchronize()
-
-    # a user-scope range also lies on the device's timeline: the kernels inside it are its problem's
-    prof.export_chrome_trace(path + ".trace.json")
-    with open(path + ".trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    os.remove(path + ".trace.json")
-    launched = [(e["name"], e["ts"]) for e in events if e.get("cat") == "kernel"]
-    for e in events:
-        if e.get("cat") == "gpu_user_annotation" and e["name"].startswith("conv_problem_"):
-            rows[int(e["name"].rsplit("_", 1)[1])]["kernels"] = sorted(
-                {name for name, ts in launched if e["ts"] <= ts <= e["ts"] + e["dur"]})
-    check = None
-    if not engine:
-        # a plan the heuristics chose, called again with the flag on: its
-        # first call's seconds against a shape met first with the flag on
-        torch.backends.cudnn.benchmark = True
-        prob = next(q for q in conv_problems() if q["cell"] == "vgg19.2048")
-        times = {}
-        for key, side in (("seen", prob["x"][2]), ("new", prob["x"][2] - 8)):
-            x = torch.randn((*prob["x"][:2], side, side), device="cuda", generator=gen)
-            wt = torch.randn(prob["w"], device="cuda", generator=gen)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            F.conv2d(x, wt, None, prob["stride"], prob["pad"])
-            torch.cuda.synchronize()
-            times[key] = time.perf_counter() - t0
-        check = {"layer": prob["layer"], "side": prob["side"], "first_call_s_seen_by_heuristics": times["seen"],
-                 "first_call_s_new_shape": times["new"],
-                 "steady_ms": next(r["ms"] for r in rows if r["cell"] == "vgg19.2048" and r["pass"] == "forward")}
-    with open(path, "w") as f:
-        json.dump({"mode": mode, "benchmark_limit": optimize._BENCHMARK_LIMIT if engine else None, "rows": rows,
-                   "cache_check": check}, f)
-
-
-def report_conv_algorithms(results: dict) -> None:
-    """Phase 7a (module docstring)."""
-    run_dir = os.path.join(OUT, "conv_algorithms")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    os.makedirs(run_dir)
-    modes = {}
-    for mode, _ in CONV_MODES:
-        path = os.path.join(run_dir, f"{mode}.json")
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", f"import chip_smoke; chip_smoke.conv_worker({mode!r}, {path!r})"],
-                       cwd=ROOT, check=True, timeout=1800)
-        with open(path) as f:
-            modes[mode] = json.load(f)
-        print(f"conv algorithms: {mode} (benchmark_limit {modes[mode]['benchmark_limit']}) took "
-              f"{time.perf_counter() - t0:.1f} s")
-    base = modes["heuristic"]["rows"]
-    print("cell | layer | side | pass | " + " | ".join(f"{m} ms, search s, workspace MB, repeats" for m in modes))
-    table = []
-    for j, row in enumerate(base):
-        entry = {k: row[k] for k in ("cell", "layer", "side", "pass")}
-        for m, d in modes.items():
-            r = d["rows"][j]
-            entry[m] = {"ms": r["ms"], "search_s": r["search_s"], "workspace_mb": r["workspace_b"] / 2**20,
-                        "repeats": r["repeats"], "kernels": r.get("kernels", [])}
-        table.append(entry)
-        print(f"{row['cell']} | {row['layer']} | {row['side']} | {row['pass']} | " + " | ".join(
-            f"{entry[m]['ms']:.4f}, {entry[m]['search_s']:.3f}, {entry[m]['workspace_mb']:.1f}, {entry[m]['repeats']}"
-            for m in modes))
-    sums = {}
-    for cell, _, _, sides in CONV_CELLS:
-        for side in sides:
-            rows = [e for e in table if e["cell"] == cell and e["side"] == side]
-            sums[f"{cell}@{side}"] = {m: {"ms_per_iter": sum(e[m]["ms"] for e in rows),
-                                          "search_s": sum(e[m]["search_s"] for e in rows),
-                                          "workspace_mb_max": max(e[m]["workspace_mb"] for e in rows),
-                                          "repeat": sum(e[m]["repeats"] for e in rows), "problems": len(rows)}
-                                      for m in modes}
-            print(f"conv algorithms {cell}@{side}: " + json.dumps(sums[f"{cell}@{side}"]))
-    print("conv algorithms, cache check: " + json.dumps(modes["heuristic"]["cache_check"]))
-    for e in table:
-        print("conv kernels " + json.dumps({**{k: e[k] for k in ("cell", "layer", "side", "pass")},
-                                            **{m: e[m]["kernels"] for m in modes}}))
-    results["conv_algorithms"] = {"table": table, "sums": sums, "cache_check": modes["heuristic"]["cache_check"]}
-
-
-def report_cold_cli_image(results: dict) -> None:
-    """Phase 7a's cold CLI image (module docstring): one img_img pyramid
-    image of the vgg19.pyramid cell's sizes and iterations, each in a fresh
-    process: this tree with measured selection, this tree with
-    ``--no_cudnn_autotune``, and ``--parent``'s checkout where given, in
-    turns; each tree's K1 built first."""
-    parent = results.get("parent")
-    run_dir = os.path.join(OUT, "cold_cli")
-    shutil.rmtree(run_dir, ignore_errors=True)
-    os.makedirs(run_dir)
-    c_path, s_path = write_inputs(run_dir)
-    trees = [("change", ROOT)] + ([("parent", os.path.abspath(parent))] if parent else [])
-    for _, tree in trees:
-        subprocess.run([sys.executable, "-c", "from maua_style_tpu_torch.kernels import build; build.build(['gram'])"],
-                       cwd=tree, check=True, timeout=600)
-    code = ("import json, sys, time; t0 = time.perf_counter(); import torch; "
-            "from maua_style_tpu_torch import style, trace; t1 = time.perf_counter(); style.main(sys.argv[1:]); "
-            "torch.cuda.synchronize(); print(json.dumps({'import_s': t1 - t0, 'main_s': time.perf_counter() - t1, "
-            "'autotune_shapes': trace.counter('net.autotune_shapes')}))")
-    runs = [("parent", [])] if parent else []
-    runs += [("change", []), ("change", ["--no_cudnn_autotune"])] + ([("parent", [])] if parent else [])
-    runs += [("change", [])]
-    out = []
-    for n, (side, extra) in enumerate(runs):
-        argv = ["--content", c_path, "--style", s_path, "--output_dir", os.path.join(run_dir, f"run{n}"),
-                "--image_sizes", ",".join(map(str, SIZES)), "--num_iters", ",".join(map(str, PYRAMID_ITERS)),
-                "--optimizer", "lbfgs", "--lbfgs_num_correction", "100", "--model_file", "vgg19",
-                "--allow_random_weights", "--precision", "highest", "--compute_dtype", "float32", "--seed", "0",
-                "--gpu", "0", *extra]
-        t0 = time.perf_counter()
-        done = subprocess.run([sys.executable, "-c", code, *argv], cwd=dict(trees)[side], check=True,
-                              capture_output=True, text=True, timeout=900)
-        rec = {"tree": side, "extra": extra, "process_s": time.perf_counter() - t0,
-               **json.loads(done.stdout.strip().splitlines()[-1])}
-        print("cold cli image " + json.dumps(rec))
-        out.append(rec)
-    shutil.rmtree(run_dir, ignore_errors=True)
-    results["cold_cli_image"] = out
-
-
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5252,8 +5016,6 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU (module docstring).")
     parser.add_argument("--only", default="", help="comma-separated phase functions to run alone, in this order, "
                         "after the builds (e.g. check_fused_gram,run_main_path,run_fused); prints no kernels or ok line")
-    parser.add_argument("--parent", default=None, help="a checkout of another commit whose cold CLI image "
-                        "report_cold_cli_image runs beside this tree's")
     opts = parser.parse_args(argv)
     only = [name for name in opts.only.split(",") if name]
     t_start = time.perf_counter()
@@ -5286,7 +5048,7 @@ def main(argv: list[str] | None = None) -> int:
 
     os.makedirs(OUT, exist_ok=True)
     results = {"card": smi, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-               "cuda": torch.version.cuda, "build_s": build_s, "ptxas_correlation": ptxas, "parent": opts.parent}
+               "cuda": torch.version.cuda, "build_s": build_s, "ptxas_correlation": ptxas}
     try:
         if only:
             for name in only:

@@ -11,86 +11,46 @@ on the device until the end of a chunk (``save_iter`` / ``checkpoint_every``
 Host arrays in and out are the JAX package's (1, H, W, 3) Caffe-BGR
 layout; the engine works in NCHW.
 
-Precision: ``highest`` turns TF32 off for both matmul and cuDNN (cuDNN
-allows it by default); ``high`` and ``default`` allow TF32.
+``precision`` (TF32) and ``cudnn_autotune`` (on unless
+``--no_cudnn_autotune``) are ``models/conv_plans.py``'s.
 ``compute_dtype=torch.bfloat16`` runs the feature net in bf16; the Grams,
 the losses, the optimiser and the pastiche stay f32 (the L-BFGS histories
 then store bf16, as in the JAX package's serving config).
-cuDNN picks the algorithms of the feature net's input gradient by timing
-them (``cudnn_autotune``, on unless ``--no_cudnn_autotune``): the
-process-wide ``torch.backends.cudnn.benchmark`` and ``deterministic`` are
-on only while a step's ``torch.autograd.grad`` runs (but for the input
-gradient of the convolution that reads the image), and back at the
-caller's values whenever control returns to the caller.
 
 The vid_img frame path (``prep_frame``, ``optimize_frame``,
 ``optimize_frames``, ``optimize_frame_chain``) keeps every frame on the
 device: a uint8 frame goes up, the pastiche chains to the next frame as a
-tensor, and a uint8 image comes back.  ``optimize_frames`` runs a chunk of
-independent frames as one stacked step per iteration, as JAX's ``vmap``
-does: one extractor forward and backward over the stack, each style
-layer's Grams in one kernel launch, and per-frame content targets, losses,
-gradient normalisation and optimiser state.  ``optimize_frame_chain``
-keeps JAX's signature and results, but where JAX runs one ``lax.scan``
-program it loops over ``optimize_frame`` on the host.
+tensor, and a uint8 image comes back.
 
-A mesh (``mesh=``, ``parallel/mesh.py``): on a "space" axis a pastiche
-(img_img's, a vid_img frame's, or a stack of frames) is cut into row
-bands, one per device (``parallel/spatial.py``; any model of the
-registry, NIN's strided convolution and overlapping pools included), and
-every iteration runs the bands' forward with halo rows, the losses from
-per-band sums (``losses.evaluate_banded_losses``, K1 per band over the
-whole stack) and the optimiser band by band; a frame's set-up (preprocess, histogram
-match, the warp of the previous frame, the init) runs whole on the first
-device and is then split, and the result, the ``save_iter`` snapshots and
-the run-state checkpoints are gathered to the single-device layout.  On a
-"frames" axis ``optimize_frames`` shares a chunk's frames out to the rows
-of the mesh (``parallel.mesh_rows``: one device, or with "space" too a
-row of bands), each row with its own copy of the extractor and the style
-targets and its own stacked step, the host issuing every row's iteration
-in turn.  The per-frame and chained passes run on the first row, as JAX's
-frames-stripped programs do.  On a "tensor" axis a pastiche (img_img's,
-a vid_img frame's or stack's) is cut into (band, share) pieces of
-contiguous channel shares on the first "frames" row's grid
-(``parallel.mesh_grid``; one band without "space"; a share past the last
-channel empty): each convolution splits its contraction dim
-(``spatial.conv_pieces``), each style layer's per-frame Grams are
-assembled from their blocks (``ops.gram.channel_gram``: K1 on each
-share's diagonal block over the stack), the temporal weights go to every
-share's device band by band, and the optimiser state is kept piece by
-piece; the results, snapshots and run-states are gathered to the
-single-device layout.  A "frames" row's replica runs on the row's own
-(space, tensor) mesh (``parallel.row_mesh``).
+A mesh (``mesh=``, ``parallel/mesh.py``): a "space" axis cuts a pastiche
+(img_img's, a vid_img frame's, or a stack of frames) into row bands, one
+per device, and a "tensor" axis into (band, share) pieces of contiguous
+channel shares (``_band_layout``, ``parallel/spatial.py``; any model of the
+registry): each convolution runs with halo rows and splits its contraction
+dim (``spatial.conv_pieces``), the losses sum the pieces (K1 per band over
+the whole stack, a style layer's Grams assembled from their channel blocks,
+``ops.gram.channel_gram``), and the optimiser state is kept piece by piece;
+a frame's set-up runs whole on the first device, and results, snapshots
+and run-states are gathered to the single-device layout.  A "frames" axis
+shares ``optimize_frames``' chunk out to the mesh's rows, each with its own
+replica (``_replica``), the host issuing every row's iteration in turn; the
+per-frame and chained passes run on the first row, as JAX's frames-stripped
+programs do.
 
 img_vid (``transfer_type="img_vid"``) optimises a T-frame pastiche in
-circular ``gram_frame_window`` windows (``engine/windows.py``): the whole
-pastiche stays on the host, each window goes up, runs, and is scattered
-back.  Windows after the first freeze the frames earlier windows styled,
-by a gradient mask or, without run-state checkpoints, by the frozen-split
-runner (``_run``).  On a mesh each window's frames are shared out to the
-rows of a "frames" axis and cut into row bands on "space" and channel
-shares on "tensor" (``_window_layout``; JAX shards the window's frames and
-channels), the losses summed from the pieces
-(``losses.evaluate_window_losses``: the whole-window Gram by groups of
-frame share and channel share, against the target permuted once into
-group order).
-
-``optimize_pyramid`` (``--fuse_scales``) runs img_img's whole pyramid with
-every scale's tail on the device, as JAX's fused program does: each
-scale's init is the previous output resized on the device, and with
-colour statistics both that init and each output are recoloured there by
-``match_histogram_device``, so its artifacts differ from the per-scale
-loop's, which matches histograms on the host.
+circular ``gram_frame_window`` windows (``_optimize_windows``,
+``engine/windows.py``), the whole pastiche on the host: windows after the
+first freeze the frames earlier windows styled, and on a mesh a window's
+frames, rows and channels are shared out (``_window_layout``; JAX shards
+the window's frames and channels).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import shutil
-from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -108,6 +68,7 @@ from ..losses import (
     evaluate_window_losses,
     frame_slice,
 )
+from ..models.conv_plans import ConvPlans, apply_precision
 from ..models.extractor import Extractor, ExtractorSpec, truncate_spec
 from ..ops.frame_ops import deprocess_to_u8, match_histogram_device, preprocess_u8, warp_map_from_flow
 from ..ops.resize import resize_bilinear, scale_shape
@@ -117,13 +78,12 @@ from ..parallel import (channel_shares, frame_shards, mesh_grid, mesh_rows, row_
 from .checkpoint import load_state, save_state
 from ..utils import wrapping_indices
 from .lbfgs import Adam, LBFGS
+from .style_cache import StyleCache
 from .windows import compute_windows, overlap_grad_mask, window_overlaps
 
 # img_vid's frozen-split window runner (see _run); False selects the masked
 # runner, so that a test can compare the two
 _WINDOW_SPLIT = True
-
-_TF32 = {"highest": False, "high": True, "default": True}
 
 
 def to_nchw(x, device) -> torch.Tensor:
@@ -140,139 +100,6 @@ def to_nhwc(t: torch.Tensor) -> np.ndarray:
         out = t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
         trace.count("engine.d2h_bytes", out.nbytes)
         return out
-
-
-# elements of one chunk of the style cache's comparison (16 MiB of f32), and
-# the threads that compare chunks (numpy's comparison releases the GIL: on the
-# 8-core host of an H100 machine 4 threads compare 991 MB with a copy in
-# ≈ 0.1 s where one takes ≈ 0.3)
-_COMPARE_CHUNK = 1 << 22
-_COMPARE_THREADS = 4
-
-
-class _StyleEntry(NamedTuple):
-    """``style_targets``' one cache entry: the blend weights, a private
-    read-only C-contiguous f32 host copy of each style (the values
-    ``to_nchw`` uploads), and the targets captured from them."""
-
-    weights: tuple[float, ...]
-    styles: tuple[np.ndarray, ...]
-    targets: dict
-
-
-def _snapshot(style) -> np.ndarray:
-    snap = np.array(style, np.float32, order="C")  # a copy, whatever the caller's array
-    snap.flags.writeable = False
-    return snap
-
-
-def _chunks(a: np.ndarray, snap: np.ndarray):
-    """(piece of ``a``, piece of ``snap``) views of at most ``_COMPARE_CHUNK``
-    elements each, cut over the leading axes, in order."""
-    if a.size <= _COMPARE_CHUNK:
-        yield a, snap
-        return
-    row = a.size // len(a)
-    if row > _COMPARE_CHUNK:
-        for x, y in zip(a, snap):
-            yield from _chunks(x, y)
-        return
-    step = _COMPARE_CHUNK // row
-    for i in range(0, len(a), step):
-        yield a[i:i + step], snap[i:i + step]
-
-
-def _same_chunk(pair) -> bool:
-    a, snap = pair
-    return np.array_equal(np.asarray(a, np.float32).view(np.uint32), snap.view(np.uint32))
-
-
-def _same_f32_bits(a: np.ndarray, snap: np.ndarray, pool) -> bool:
-    """Whether ``a`` as f32 equals ``snap`` (f32, C-contiguous, of its shape)
-    bit for bit, so that NaN payloads and signed zeros count as they did in
-    a byte hash: chunk by chunk on ``pool``'s threads, each chunk converted
-    alone; at the first chunk (in order) that differs, the chunks not yet
-    started are cancelled.  Counts the bytes of ``snap`` up to that chunk."""
-    chunks = list(_chunks(a, snap))
-    for (_, s), same in zip(chunks, pool.map(_same_chunk, chunks)):
-        trace.count("engine.style_compare_bytes", s.nbytes)
-        if not same:
-            return False
-    return True
-
-
-def apply_precision(precision: str) -> None:
-    """``highest`` turns TF32 off for matmul and cuDNN; ``high`` and
-    ``default`` allow it.  The flags are process-wide."""
-    if precision not in _TF32:
-        raise ValueError(f"unknown precision {precision!r}; one of {sorted(_TF32)}")
-    torch.backends.cuda.matmul.allow_tf32 = _TF32[precision]
-    torch.backends.cudnn.allow_tf32 = _TF32[precision]
-
-
-# cuDNN's measured selection of the feature net's input-gradient plans
-# (``StyleEngine(cudnn_autotune=True)``).  The candidate plans it times a
-# problem, in the order of its heuristics (PyTorch's default 10): on an H100
-# 80GB HBM3 the 10-plan search took 28.3 s of set-up at 2048² (VGG-19),
-# 30.6 s over the pyramid's five scales and 136 s at 9088² (NIN); 2 plans
-# find the same VGG-19 data-gradient plans (86.5 → 12.9 ms at 2048² conv1_2)
-# in 0.9 s and 2.2 s, and 3 or 4 plans gain no more there; kept to
-# deterministic plans, 2 take the 2048² data gradients from 260.2 to 129.2 ms
-# an iteration in 0.9 s of search (chip_smoke's report_conv_algorithms)
-_BENCHMARK_LIMIT = 2
-# every (arch, deepest layer, pastiche shape, dtype, device) this process has
-# run a measured input gradient of: the key of one set of convolution
-# problems that cuDNN times once and keeps a plan of for the process
-_MEASURED: set = set()
-# the caller's (benchmark, deterministic, benchmark_limit) while a measured
-# scope is open (engine calls do not overlap; the flags are the process's)
-_SCOPE: dict = {"caller": None}
-
-
-@contextlib.contextmanager
-def _measured_selection(inner=contextlib.nullcontext()):
-    """cuDNN's measured selection inside the block (and the context
-    ``inner``): ``torch.backends.cudnn.benchmark`` on, ``benchmark_limit``
-    at ``_BENCHMARK_LIMIT``, and ``deterministic`` on, which keeps the
-    search to plans that repeat bit for bit and, as a field of the key
-    PyTorch caches a plan under, keeps the plans it picks from anything
-    that runs the same problems with the flag off (the heuristics' plans
-    stay theirs).  All three are the caller's again after it, however it
-    ends."""
-    cudnn = torch.backends.cudnn
-    limit = cudnn.is_available()  # a build without cuDNN has no limit
-    saved = cudnn.benchmark, cudnn.deterministic, cudnn.benchmark_limit if limit else None
-    cudnn.benchmark = cudnn.deterministic = True
-    if limit:
-        cudnn.benchmark_limit = _BENCHMARK_LIMIT
-    _SCOPE["caller"] = saved
-    try:
-        with inner:
-            yield
-    finally:
-        _SCOPE["caller"] = None
-        cudnn.benchmark, cudnn.deterministic = saved[:2]
-        if limit:
-            cudnn.benchmark_limit = saved[2]
-
-
-def _image_conv_hook(module, inputs, out) -> None:
-    """Forward hook of the convolution that reads the image: in a measured
-    scope its input gradient, the last convolution of the backward, runs
-    under the caller's flags (``_as_caller``, on its output's gradient), on
-    the plan it had before.  Its 3-channel result leaves cuDNN's candidates
-    far apart: at 9088² NIN's 11x11 stride-4 conv1 took 5.6 s to time its
-    second plan and 51 s to find a faster one than the heuristics' 102 ms
-    among ten (H100 80GB HBM3, chip_smoke's report_conv_algorithms), and
-    VGG-19's conv1_1 gains 0.5 of 7.1 ms at 2048²."""
-    if out.requires_grad:
-        out.register_hook(_as_caller)
-
-
-def _as_caller(grad) -> None:
-    caller = _SCOPE["caller"]
-    if caller is not None:
-        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = caller[:2]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -303,11 +130,6 @@ class StyleEngine:
         mesh=None,
         cudnn_autotune: bool = True,
     ):
-        """``cudnn_autotune``: cuDNN picks the plan of each convolution of
-        the feature net's input gradient (but the image convolution's,
-        ``_image_conv_hook``) by timing its candidates the first time the
-        process meets the problem (``_measured``), not by its heuristics;
-        the same f32 (or bf16) arithmetic, another algorithm."""
         apply_precision(precision)
         if optimizer not in ("lbfgs", "adam"):
             raise ValueError(f"unknown optimizer {optimizer}")
@@ -344,36 +166,10 @@ class StyleEngine:
         self.precision = precision
         self.normalize_weights = normalize_weights
         self.compute_dtype = compute_dtype
-        self.cudnn_autotune = cudnn_autotune
-        if cudnn_autotune and self.spec.conv_layers:
-            image_conv = self.extractor.get_submodule(self.spec.conv_layers[0].name)
-            image_conv.register_forward_hook(_image_conv_hook)
+        self.conv_plans = ConvPlans(self.extractor, compute_dtype, cudnn_autotune)
         self.last_loss_log: np.ndarray | None = None
-        # one capture per engine (engines live per scale); per-frame callers
-        # pass the same style images every call
-        self._style_cache: _StyleEntry | None = None
+        self.style_cache = StyleCache()
         self._replicas: dict[tuple[torch.device, ...], StyleEngine] = {}
-
-    def _measured(self, p):
-        """The scope of one step's input gradient of the pastiche ``p``:
-        with ``cudnn_autotune`` cuDNN's measured selection
-        (``_measured_selection``), and a shape the process meets here for
-        the first time counts once in ``net.autotune_shapes`` and runs under
-        a ``net.autotune`` span (cuDNN searches only on a CUDA device, and
-        only for problems it holds no plan of).  A banded pastiche (a list)
-        keeps the caller's flags: its bands' backwards may run at once on
-        several devices' threads, where the process-wide flags, which
-        ``_as_caller`` sets back in the middle of a backward, cannot follow
-        each band."""
-        if not self.cudnn_autotune or isinstance(p, list):
-            return contextlib.nullcontext()
-        key = (self.spec.arch, self.spec.layers[-1].name if self.spec.layers else None, tuple(p.shape),
-               self.compute_dtype, p.device)
-        if key in _MEASURED:
-            return _measured_selection()
-        _MEASURED.add(key)
-        trace.count("net.autotune_shapes")
-        return _measured_selection(trace.span("net.autotune", shape=list(p.shape)))
 
     def _extract(self, x: torch.Tensor, layers: Sequence[str]) -> dict[str, torch.Tensor]:
         return self.extractor(x.to(self.compute_dtype), layers)
@@ -401,7 +197,7 @@ class StyleEngine:
                 learning_rate=self.learning_rate, lbfgs_history=self.lbfgs_history, lbfgs_method=self.lbfgs_method,
                 precision=self.precision, normalize_weights=self.normalize_weights, compute_dtype=self.compute_dtype,
                 device=row[0], mesh=row_mesh(self.mesh, row) if len(row) > 1 else None,
-                cudnn_autotune=self.cudnn_autotune,
+                cudnn_autotune=self.conv_plans.measured,
             )
         return self._replicas[row]
 
@@ -440,29 +236,10 @@ class StyleEngine:
         return out
 
     def style_targets(self, styles: Sequence, blend_weights: Sequence[float]) -> dict[str, torch.Tensor]:
-        """The blended Gram targets of (1, H, W, 3) style arrays, from the
-        engine's one-entry cache when the weights and every style's f32
-        values are those of its last capture."""
+        """The blended Gram targets of (1, H, W, 3) style arrays (``style_cache``)."""
         with trace.span("engine.capture", kind="style"):
-            weights = tuple(float(bw) for bw in blend_weights)
-            entry = self._style_cache
-            with trace.span("engine.style_key"):
-                arrays = [np.asarray(s) for s in styles]
-                hit = (entry is not None and entry.weights == weights and len(arrays) == len(entry.styles)
-                       and all(a.shape == snap.shape for a, snap in zip(arrays, entry.styles)))
-                if hit:
-                    with ThreadPoolExecutor(_COMPARE_THREADS) as pool:
-                        hit = all(_same_f32_bits(a, snap, pool) for a, snap in zip(arrays, entry.styles))
-            if hit:
-                trace.count("engine.style_cache.hit")
-                return entry.targets
-            trace.count("engine.style_cache.miss")
-            snaps = tuple(_snapshot(a) for a in arrays)
-            targets = capture_style_targets(
-                self._extract, [to_nchw(s, self.device) for s in snaps], blend_weights, self.loss_cfg
-            )
-            self._style_cache = _StyleEntry(weights, snaps, targets)
-            return targets
+            return self.style_cache.targets(styles, blend_weights, lambda snaps: capture_style_targets(
+                self._extract, [to_nchw(x, self.device) for x in snaps], blend_weights, self.loss_cfg))
 
     def style_video_targets(
         self, style_videos: Sequence, blend_weights: Sequence[float], gram_frame_window: int
@@ -507,7 +284,7 @@ class StyleEngine:
 
     def _run(self, *args, **kw):
         """``_steps`` to its end: (pastiche, opt_state, log)."""
-        return _drain(self._steps(*args, **kw))
+        return _drain_all([self._steps(*args, **kw)])[0]
 
     def _steps(self, pastiche, opt, opt_state, targets, scale, n_iters, *, mask=None, frozen=None, frames=False,
                window=None):
@@ -574,7 +351,7 @@ class StyleEngine:
                 total, per = loss_of(p)
                 # an empty channel share's piece (tensor:4 over 3 colours) may reach no term
                 empty = banded and any(b.numel() == 0 for b in p)
-                with trace.span("net.backward"), self._measured(p):
+                with trace.span("net.backward"), self.conv_plans.scope(p):
                     raw = torch.autograd.grad(total, p, allow_unused=empty)
                 grads = [torch.zeros_like(x) if g is None else g.float() for g, x in zip(raw, p if banded else [p])]
                 if mask is not None:
@@ -725,8 +502,7 @@ class StyleEngine:
         with trace.span("engine.optimize"):
             if transfer_type not in ("img_img", "vid_img", "img_vid"):
                 raise ValueError(f"unknown transfer_type {transfer_type!r}")
-            blend_weights = (list(blend_weights) if blend_weights is not None
-                             else [1.0 / max(len(styles), 1)] * len(styles))
+            blend_weights = _blend_weights(blend_weights, len(styles))
             loop = dict(save_iter=save_iter, print_iter=print_iter, checkpoint_every=checkpoint_every,
                         profile_dir=profile_dir)
             targets = {"content": self.content_targets(content)}
@@ -748,16 +524,13 @@ class StyleEngine:
             pastiche = to_nchw(init, self.device)
             split, gather = self._band_layout(pastiche.shape)
             opt = self._make_optimizer()
-            # the state's pastiche-sized entries, kept band by band on a "space"
-            # mesh; run-states hold the single-device layout either way, so a
-            # banded run and an unbanded one resume each other's state
-            per_band = {k for k, v in opt.init([pastiche.to("meta")]).items() if isinstance(v, list)}
+            per_band = _pieced_keys(opt, pastiche)
             opt_state, done = None, 0
             if run_checkpoint is not None:
                 restored = load_state(run_checkpoint, pastiche, opt.init(pastiche.to("meta")))
                 if restored is not None:
                     pastiche, whole_state, _, done = restored
-                    opt_state = {k: split(v) if k in per_band else v for k, v in whole_state.items()}
+                    opt_state = _map_pieced(whole_state, per_band, split)
             if opt_state is None:
                 opt_state = opt.init(split(pastiche))
 
@@ -766,8 +539,7 @@ class StyleEngine:
                 if save_callback is not None:
                     save_callback(to_nhwc(p), done)
                 if run_checkpoint is not None:
-                    save_state(run_checkpoint, p, {k: gather(v) if k in per_band else v for k, v in st.items()}, 0,
-                               done)
+                    save_state(run_checkpoint, p, _map_pieced(st, per_band, gather), 0, done)
 
             pastiche, _, logs = self._iterate(split(pastiche), opt, opt_state, targets, scale, num_iters, done,
                                               after_chunk, **loop)
@@ -799,15 +571,15 @@ class StyleEngine:
         targets are freed before the next scale starts.  Returns each
         scale's output as a host array, all copied at the end;
         ``last_loss_log`` is the scales' logs one after another, (Σ
-        num_iters, n_losses).
+        num_iters, n_losses).  Its recolouring on the device makes its
+        artifacts differ from the per-scale loop's, which matches on the host.
 
         On a mesh each scale's init is set up whole on the first device and
         cut with that scale's ``_band_layout`` (band heights change with the
         scale); the content targets are captured piece by piece and the
         output gathered before its recolouring."""
         with trace.span("engine.optimize_pyramid"):
-            n_styles = len(styles_per_scale[0])
-            blend = list(blend_weights) if blend_weights is not None else [1.0 / max(n_styles, 1)] * n_styles
+            blend = _blend_weights(blend_weights, len(styles_per_scale[0]))
             hist = None if hist_stats is None else [torch.as_tensor(np.asarray(a, np.float32), device=self.device)
                                                     for a in hist_stats]
             opt = self._make_optimizer()
@@ -878,8 +650,7 @@ class StyleEngine:
 
         resume = None
         like = torch.empty((len(wrapping_indices(total, 0, gfw)), 3, *output.shape[1:3]), device=dev)
-        # the state's window-sized entries, kept piece by piece on a mesh
-        per_piece = {k for k, v in opt.init([like.to("meta")]).items() if isinstance(v, list)}
+        per_piece = _pieced_keys(opt, like)
         if run_checkpoint is not None:
             # restored to the device of the first template; the state's
             # template only gives shapes and dtypes
@@ -924,7 +695,7 @@ class StyleEngine:
                 # previous window's pastiche and optimizer state)
                 if resume[3] > 0:
                     pastiche, done = split(resume[0]["pastiche"]), resume[3]
-                    opt_state = {k: split(v) if k in per_piece else v for k, v in resume[1].items()}
+                    opt_state = _map_pieced(resume[1], per_piece, split)
                 resume = None
 
             def after_chunk(p, st, done, w=w, gather=gather):
@@ -932,8 +703,7 @@ class StyleEngine:
                 if save_callback is not None:
                     save_callback(to_nhwc(p), w * num_iters + done)
                 if run_checkpoint is not None:
-                    save_state(run_checkpoint, blob(p), {k: gather(v) if k in per_piece else v for k, v in st.items()},
-                               w, done)
+                    save_state(run_checkpoint, blob(p), _map_pieced(st, per_piece, gather), w, done)
 
             pastiche, opt_state, wlogs = self._iterate(
                 pastiche, opt, opt_state, self._share_targets(targets, layout) if layout else targets, scale,
@@ -943,8 +713,7 @@ class StyleEngine:
             pastiche = gather(pastiche)
             output[idx] = to_nhwc(pastiche)
             if run_checkpoint is not None and w + 1 < len(windows[0]):
-                save_state(run_checkpoint, blob(pastiche),
-                           {k: gather(v) if k in per_piece else v for k, v in opt_state.items()}, w + 1, 0)
+                save_state(run_checkpoint, blob(pastiche), _map_pieced(opt_state, per_piece, gather), w + 1, 0)
 
         if run_checkpoint is not None:
             shutil.rmtree(run_checkpoint, ignore_errors=True)  # run completed
@@ -1030,15 +799,13 @@ class StyleEngine:
         prof.export_chrome_trace(path)
         return out
 
-
     # -- the vid_img frame path ---------------------------------------------
 
     def prep_frame(self, content_u8, out_hw: tuple[int, int], hist_stats=None) -> torch.Tensor:
         """One u8 frame -> the (1, 3, h, w) preprocessed (and histogram-
         matched) tensor that seeds a prev_warp chain (reference
         style.py:223-228)."""
-        c = preprocess_u8(_on(content_u8, self.device), size=tuple(out_hw))
-        return match_histogram_device(c, *hist_stats) if hist_stats is not None else c
+        return self._frame_content(_on(content_u8, self.device), tuple(out_hw), None, hist_stats)
 
     def optimize_frame(
         self,
@@ -1078,7 +845,7 @@ class StyleEngine:
         also on the device."""
         dev = self.device
         out_hw = tuple(int(v) for v in out_hw)
-        blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
+        blend_weights = _blend_weights(blend_weights, len(styles))
         c = self._frame_content(_on(content_u8, dev), out_hw, content_scale, hist_stats)
         targets = {"style": self.style_targets(styles, blend_weights),
                    "content": self._content_targets(c)}
@@ -1136,12 +903,13 @@ class StyleEngine:
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Independent frames (first pass, ``content`` / ``random`` init)
         as one stacked step per iteration (JAX's ``vmap`` of the frame
-        program): (B, H, W, 3) u8 -> (pastiches (B, 1, 3, h, w), displays
-        (B, h, w, 3) u8), both on the device.  Each frame is preprocessed,
-        histogram-matched and given its content target on its own, its
-        random init drawn from its own seed as ``optimize_frame`` draws it,
-        and its losses, gradient normalisation and optimiser state are its
-        own; the style targets are shared.  ``last_loss_log`` is
+        program: one forward and backward over the stack, each style layer's
+        Grams in one kernel launch): (B, H, W, 3) u8 -> (pastiches (B, 1, 3,
+        h, w), displays (B, h, w, 3) u8), both on the device.  Each frame is
+        preprocessed, histogram-matched and given its content target on its
+        own, its random init drawn from its own seed as ``optimize_frame``
+        draws it, and its losses, gradient normalisation and optimiser state
+        are its own; the style targets are shared.  ``last_loss_log`` is
         (B, num_iters, n_losses).  On a "space" mesh each band holds all B
         frames' rows.  On a "frames" mesh each row of the mesh takes its
         share of the frames (``parallel.frame_shards``; a chunk the axis
@@ -1151,25 +919,22 @@ class StyleEngine:
             raise ValueError(f"optimize_frames takes a chain-free init, not {init_mode!r}")
         contents_u8 = np.asarray(contents_u8)
         seeds = list(seeds) if seeds is not None else list(range(len(contents_u8)))
-        blend_weights = list(blend_weights) if blend_weights is not None else [1.0 / max(len(styles), 1)] * len(styles)
+        blend_weights = _blend_weights(blend_weights, len(styles))
         kw = dict(out_hw=tuple(int(v) for v in out_hw), content_scale=content_scale, blend_weights=blend_weights,
                   init_mode=init_mode, hist_stats=hist_stats)
         shards = frame_shards(self.sharding, len(contents_u8))
         if shards is None:  # no "frames" axis, or a chunk it does not divide
-            pastiches, displays, log = _drain(self._frames_job(contents_u8, styles, num_iters, seeds, **kw))
+            pastiches, displays, log = _drain_all([self._frames_job(contents_u8, styles, num_iters, seeds, **kw)])[0]
         else:
             # each row's share with its own extractor copy and style targets
-            # (captured once, here, and copied; the host copies of the styles
-            # the cache compares with are shared); the host enqueues one
-            # iteration of every row's step in turn
+            # (captured once, here, and copied to the row's cache); the host
+            # enqueues one iteration of every row's step in turn
             self.style_targets(styles, blend_weights)
-            entry = self._style_cache
             jobs = []
             for row, part in shards:
                 replica = self._replica(row)
                 if replica is not self:
-                    replica._style_cache = entry._replace(
-                        targets={l: t.to(replica.device) for l, t in entry.targets.items()})
+                    self.style_cache.copy_to(replica.style_cache, replica.device)
                 jobs.append(replica._frames_job(contents_u8[part], styles, num_iters, seeds[part], **kw))
             outs = _drain_all(jobs)
             pastiches, displays, log = (torch.cat([o[i].to(self.device) for o in outs]) for i in range(3))
@@ -1229,9 +994,10 @@ class StyleEngine:
         hist_stats=None,
         seeds: Sequence[int] | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """K chained frames: frame i's result is frame i+1's ``prev``.
-        ``stacked_aux`` holds per-frame arrays with leading dim K
-        ("content_u8"; "blend", "flow", "weights_u8" per mode).  Returns
+        """K chained frames, ``optimize_frame`` after ``optimize_frame`` on
+        the host (JAX runs one ``lax.scan``): frame i's result is frame
+        i+1's ``prev``.  ``stacked_aux`` holds per-frame arrays with leading
+        dim K ("content_u8"; "blend", "flow", "weights_u8" per mode).  Returns
         (chain (1, 3, h, w), displays (K, h, w, 3) u8) on the device;
         ``last_loss_log`` is (K, num_iters, n_losses)."""
         if init_mode not in ("blend", "warp_prev"):
@@ -1257,6 +1023,22 @@ def _same(x):
     return x
 
 
+def _pieced_keys(opt, like: torch.Tensor) -> set:
+    """The optimiser state's entries the size of the pastiche ``like``: kept piece by
+    piece on a mesh, whole in a run-state (so mesh and one-device runs resume each other's)."""
+    return {k for k, v in opt.init([like.to("meta")]).items() if isinstance(v, list)}
+
+
+def _map_pieced(state: dict, keys: set, fn: Callable) -> dict:
+    """``state`` with ``fn`` (a layout's split or gather) applied to its entries ``keys``."""
+    return {k: fn(v) if k in keys else v for k, v in state.items()}
+
+
+def _blend_weights(blend_weights, n_styles: int) -> list[float]:
+    """The given blend weights, or by default an equal share of each style."""
+    return list(blend_weights) if blend_weights is not None else [1.0 / max(n_styles, 1)] * n_styles
+
+
 def _whole_shape(t, shares: int = 1) -> tuple[int, ...]:
     """A target's shape, or for a banded one (a list; of ``shares`` channel
     shares, share-major) the whole image's."""
@@ -1264,15 +1046,6 @@ def _whole_shape(t, shares: int = 1) -> tuple[int, ...]:
         cols = spatial.columns(t, shares)
         return (t[0].shape[0], sum(col[0].shape[1] for col in cols), sum(x.shape[2] for x in cols[0]), t[0].shape[3])
     return tuple(t.shape)
-
-
-def _drain(gen):
-    """Run a step generator to its end; its return value."""
-    while True:
-        try:
-            next(gen)
-        except StopIteration as stop:
-            return stop.value
 
 
 def _drain_all(gens: list) -> list:
@@ -1299,4 +1072,4 @@ def _nchw(x, device) -> torch.Tensor:
     return x.to(device).float() if isinstance(x, torch.Tensor) else to_nchw(x, device)
 
 
-__all__ = ["StyleEngine", "to_nchw", "to_nhwc", "resolve_device", "apply_precision"]
+__all__ = ["StyleEngine", "to_nchw", "to_nhwc", "resolve_device"]

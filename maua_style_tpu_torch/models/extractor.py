@@ -127,6 +127,12 @@ class Extractor(nn.Module):
             self.load_state_dict({k: v for k, v in state_dict.items() if k.split(".")[0] in own})
         self.requires_grad_(False)
 
+    @property
+    def image_conv(self) -> nn.Conv2d | None:
+        """The convolution that reads the image (the first), if any."""
+        convs = self.spec.conv_layers
+        return self.get_submodule(convs[0].name) if convs else None
+
     def forward(self, x, wanted: Iterable[str] = (), conv=None, pool=None) -> dict:
         """x: (B, C, H, W), or a list of row bands of one image
         (``parallel/spatial.py``).  Returns {name: activation} for

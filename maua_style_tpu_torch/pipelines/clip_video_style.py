@@ -26,8 +26,8 @@ import numpy as np
 
 from .. import io as mio
 from ..config import single_device
-from ..engine.optimize import apply_precision
 from ..io.image import CAFFE_MEAN
+from ..models.conv_plans import apply_precision
 from .clip_vqgan import ONE_DEVICE, get_engine
 from .flow_prepass import start_flow_prepass, work_dir
 from .frame_loop import run_video_style_passes

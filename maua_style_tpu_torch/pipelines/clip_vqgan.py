@@ -34,8 +34,9 @@ import numpy as np
 import torch
 
 from ..engine.lbfgs import Adam
-from ..engine.optimize import apply_precision, resolve_device, to_nchw, to_nhwc
+from ..engine.optimize import resolve_device, to_nchw, to_nhwc
 from ..models import vqgan as vq
+from ..models.conv_plans import apply_precision
 from ..models.clip import CLIP, RESNET_CONFIGS, VIT_B32, CLIPResNet, init_clip, init_clip_resnet, tokenize
 from ..models.clip.convert import clip_from_state_dict, clip_params_from_jax, load_clip_npz
 from ..models.clip.model import CLIP_MEAN, CLIP_STD

@@ -26,8 +26,9 @@ import torch
 from PIL import Image
 
 from ..engine.lbfgs import Adam
-from ..engine.optimize import apply_precision, resolve_device
+from ..engine.optimize import resolve_device
 from ..models import nca
+from ..models.conv_plans import apply_precision
 from ..models.extractor import Extractor, truncate_spec
 from ..models.registry import load_params, select_model
 from ..ops.gram import _GramFn

@@ -13,7 +13,7 @@ pipelines/frame_loop.py.
 from __future__ import annotations
 
 from .. import io as mio
-from ..engine.optimize import apply_precision
+from ..models.conv_plans import apply_precision
 from .common import build_engine
 from .flow_prepass import start_flow_prepass, work_dir
 from .frame_loop import run_video_style_passes

@@ -3,7 +3,7 @@ convolution on the same card: each layer of the benchmark's feature nets at
 its cells' sizes (VGG-19 to conv5_1 at 256², 512², the pyramid's 724² to
 1448² and 2048²; NIN to cccp7 at 9088²), forward and input gradient, with
 the plans the engine's measured selection picks
-(``engine.optimize._measured_selection`` around the input gradient, the
+(``models.conv_plans.measured_selection`` around the input gradient, the
 image convolution's under the caller's flags, as the engine runs them) and
 with cuDNN's heuristics.
 
@@ -37,7 +37,7 @@ def _worst(mode: str, case: str) -> dict:
 
     import torch.nn.functional as F
 
-    from maua_style_tpu_torch.engine.optimize import _measured_selection
+    from maua_style_tpu_torch.models.conv_plans import measured_selection
     from maua_style_tpu_torch.models import select_model
     from maua_style_tpu_torch.models.extractor import pool_out_len, truncate_spec
 
@@ -66,7 +66,7 @@ def _worst(mode: str, case: str) -> dict:
 
             def passes(x, wt, gy, measured):
                 y = F.conv2d(x, wt, None, layer.stride, layer.pad)
-                with _measured_selection() if measured else contextlib.nullcontext():
+                with measured_selection() if measured else contextlib.nullcontext():
                     gx = torch.ops.aten.convolution_backward(gy, x, wt, None, layer.stride, layer.pad, (1, 1), False,
                                                              (0, 0), 1, (True, False, False))[0]
                 return y, gx

@@ -1,8 +1,9 @@
 """The engine's measured selection of cuDNN's convolution algorithms
-(``StyleEngine(cudnn_autotune=...)``), on the CPU: the process-wide
-``torch.backends.cudnn.benchmark`` and ``deterministic`` are on while a
-step's input gradient runs (but for the convolution that reads the image,
-and for a banded pastiche), the caller's while the forward runs and
+(``StyleEngine(cudnn_autotune=...)``, ``models/conv_plans.py``), on the
+CPU: the process-wide ``torch.backends.cudnn.benchmark`` and
+``deterministic`` are on while a step's input gradient runs (but for the
+convolution that reads the image, and for a banded pastiche), the
+caller's while the forward runs and
 whenever control is back with the caller; ``--no_cudnn_autotune`` turns it
 off; the ``net.autotune_shapes`` counter and ``net.autotune`` spans mark
 the first meeting of each pastiche shape."""
@@ -15,7 +16,7 @@ from maua_style_tpu_torch import config, trace
 from maua_style_tpu_torch.engine import StyleEngine
 from maua_style_tpu_torch.engine.optimize import to_nchw
 from maua_style_tpu_torch.losses import LossConfig
-from maua_style_tpu_torch.models import init_params, registry
+from maua_style_tpu_torch.models import Extractor, ExtractorSpec, init_params, registry
 from maua_style_tpu_torch.parallel import build_mesh
 from maua_style_tpu_torch.pipelines import common
 from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
@@ -215,7 +216,7 @@ def test_a_replica_keeps_the_setting(autotune):
     engine = _engine(cudnn_autotune=autotune, mesh=build_mesh([CPU] * 2, [("space", 2)]))
     engine.band_devices = None  # as on distinct cards: the row is not the engine's own
     replica = engine._replica((CPU, CPU))
-    assert replica is not engine and replica.cudnn_autotune is autotune
+    assert replica is not engine and replica.conv_plans.measured is autotune
 
 
 def test_a_shape_counts_once():
@@ -237,3 +238,11 @@ def test_a_shape_counts_once():
     finally:
         trace.disable()
     assert counts == [(1, 1, [[1, 3, 40, 44]]), (0, 0, []), (1, 1, [[1, 3, 40, 36]])]
+
+
+def test_the_feature_net_names_its_image_convolution():
+    """The hook goes on the convolution that reads the image: the first of
+    the spec's, none in a net without convolutions."""
+    engine = _engine()
+    assert engine.extractor.image_conv is engine.extractor.conv1_1
+    assert Extractor(ExtractorSpec("none", ())).image_conv is None

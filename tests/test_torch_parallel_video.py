@@ -502,7 +502,7 @@ def test_optimize_frames_second_row_on_a_replica(monkeypatch):
     assert replica.mesh.axes == (("space", 2),) and replica.band_devices == [CPU, CPU] and replica.device == CPU
     weights = engine.extractor.state_dict()
     assert all(torch.equal(v, weights[k]) for k, v in replica.extractor.state_dict().items())
-    entry, cached = engine._style_cache, replica._style_cache
+    entry, cached = engine.style_cache.entry, replica.style_cache.entry
     assert cached.weights == entry.weights and all(a is b for a, b in zip(cached.styles, entry.styles))
     for layer, t in entry.targets.items():
         copy = cached.targets[layer]

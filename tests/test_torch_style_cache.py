@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from maua_style_tpu_torch import trace
-from maua_style_tpu_torch.engine import StyleEngine, optimize
+from maua_style_tpu_torch.engine import StyleEngine, style_cache
 from maua_style_tpu_torch.parallel import build_mesh
 from test_torch_engine import _engine, _images
 from test_torch_threads import torch_threads_per_worker  # noqa: F401  (autouse: one torch thread pool per core)
@@ -61,10 +61,10 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("chunk", [16, optimize._COMPARE_CHUNK])
+@pytest.mark.parametrize("chunk", [16, style_cache._COMPARE_CHUNK])
 @pytest.mark.parametrize("case", list(CASES))
 def test_a_call_hits_only_on_the_same_f32_styles_and_weights(case, chunk, monkeypatch):
-    monkeypatch.setattr(optimize, "_COMPARE_CHUNK", chunk)
+    monkeypatch.setattr(style_cache, "_COMPARE_CHUNK", chunk)
     make, hits, reads = CASES[case]
     styles, weights, styles2, weights2 = make(_images()[1])
     engine = _engine("adam")
@@ -92,7 +92,7 @@ def test_a_change_in_place_after_a_call_misses_and_recaptures():
     style = _images()[1]
     engine = _engine("adam")
     first = {l: t.clone() for l, t in engine.style_targets([style], [1.0]).items()}
-    snap = engine._style_cache.styles[0]
+    snap = engine.style_cache.entry.styles[0]
     assert not snap.flags.writeable and not np.shares_memory(snap, style)
     style[0, 3, 4, 1] += 1.0
     before = _counts()
@@ -130,7 +130,7 @@ def test_the_replica_of_an_optimize_frames_row_shares_the_copy_and_hits(monkeypa
     engine.optimize_frames(contents, [style], 2, out_hw=(48, 48), init_mode="content", blend_weights=[1.0])
     assert _since(before) == (2, 1, 2 * style.nbytes)
     replica = engine._replicas[(CPU, CPU)]
-    entry, copy = engine._style_cache, replica._style_cache
+    entry, copy = engine.style_cache.entry, replica.style_cache.entry
     assert copy.weights == entry.weights and all(a is b for a, b in zip(copy.styles, entry.styles))
     for layer, t in entry.targets.items():
         assert torch.equal(copy.targets[layer], t)
